@@ -1,0 +1,25 @@
+"""Device resolution shared by the public entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. A CUDA device without a card raises: the
+    port never drops to the CPU on its own — the caller asks for it with
+    ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the host")
+    return dev
+
+
+def div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x / s`` as a true IEEE division on every device. On CUDA a Python
+    scalar divisor is turned into a multiply by its reciprocal, which
+    rounds differently from the JAX package's division — and these
+    quotients feed ``floor`` (voxel cells, histogram bins, strides)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)

@@ -1,0 +1,109 @@
+"""Compile ``csrc/*.cu`` with ``nvcc`` into one shared library with a plain
+C interface, at first use, and load it with ``ctypes``.
+
+One ``nvcc -gencode arch=compute_90a,code=sm_90a`` call builds every source
+into ``build/torch_kernels/libslkernels_<hash>.so`` at the repository root
+(git-ignored). The hash covers the sources and the flags, so a source change
+rebuilds; an existing library with the right hash is loaded as is. The
+library is written under a temporary name and renamed into place, so
+concurrent first users never load a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+log = logging.getLogger(__name__)
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+# name -> argtypes of every extern "C" launcher; each returns cudaError_t.
+_SIGNATURES = {
+    # stack, col, row, B, F, H, W, col_bits, row_bits, downsample, stream
+    "sl_decode_maps": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _P),
+    # queries, keys_t, p2v, partial, d2, idx, M, N, splits, stream
+    "sl_nearest_one": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds: float | None = None   # wall time of this process's build
+build_log = ""   # nvcc's output of that build (ptxas registers, spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ at first use and need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return _BUILD_DIR / f"libslkernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    global build_seconds, build_log
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    build_log = proc.stdout + proc.stderr
+    build_seconds = time.perf_counter() - t0
+    log.info("built %s in %.1f s", out.name, build_seconds)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a launcher's non-zero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")
