@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port on one NVIDIA GPU:
 ``structured_light_for_3d_model_replication_tpu_torch``, from stacks to the
-merged 360° cloud, with its CUDA kernels.
+merged 360° cloud and on to the printable STL, with its CUDA kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
@@ -11,17 +11,21 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
    the TF32 flags (both set False and printed);
-2. build of the CUDA kernels from ``csrc/`` (one ``nvcc``), with its time;
+2. build of the CUDA kernels from ``csrc/`` (one ``nvcc -c`` per source, all
+   started together, then one link), with its time;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and at ragged ones, then timed with CUDA events beside its
    bound, its plain version and, where one exists, a library yardstick;
 4. the main path at full size — 24 stops × 15°, 1080×1920 camera, 1920×1080
    projector, 46 frames (the repository's headline 360° configuration) —
-   through ``scan_stacks_to_cloud`` with the kernels' launch counters
-   zeroed before and read after; stage times, peak memory, the merged cloud
-   and every pose against the commanded turntable angle;
-5. the whole slice on the tests' small 4-stop rig, on the card and on the
-   host (the plain versions), compared by outcome;
+   through ``scan_stacks_to_cloud``, then ``mesh_360`` of the merged cloud
+   at depth 10 into a temporary STL (bench.py config 6 settings); each half
+   with its kernels' launch counters zeroed before and read after; stage
+   times, peak memory, the merged cloud and every pose against the
+   commanded turntable angle, the band, the CG iterations, the mesh against
+   the scene's analytic surface and the STL read back;
+5. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, on
+   the card and on the host (the plain versions), compared by outcome;
 6. a ``kernels`` JSON line, the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +200,145 @@ def check_nearest_one(dev):
                 bound_ms=bound_ms, bound_by="operations", library_ms=lib_ms)
 
 
+def sphere_band(dev):
+    """The band of a sphere of radius 80 mm sampled by 100 000 points with
+    their normals, built by the port's ``_setup_sparse`` at depth 10 with
+    131 072 block slots: (rhs, W, nbr, block_valid)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_sparse,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    u = torch.randn((100_000, 3), device=dev, generator=g)
+    u = u / u.norm(dim=1, keepdim=True)
+    pts = u * 80.0 + torch.tensor([0.0, 10.0, 500.0], device=dev)
+    out = poisson_sparse._setup_sparse(
+        pts, u, torch.ones(pts.shape[0], dtype=torch.bool, device=dev),
+        2 ** 10, 131_072, torch.tensor(4.0, device=dev))
+    print(f"sphere band at depth 10: {int(out[11])} blocks, "
+          f"{int(out[3].sum())} of them in the 131072 slots", flush=True)
+    return out[0], out[1], out[2], out[3]
+
+
+def check_matvec(dev, band):
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_matvec as pm,
+    )
+
+    rhs, W, nbr, bv = band
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    xr = torch.randn(rhs.shape, device=dev, generator=g)
+    # A ragged prefix (neighbours past it count as absent) with a tenth of
+    # its bricks marked invalid.
+    mr = 100_003
+    bvr = bv[:mr] & (torch.rand((mr,), device=dev, generator=g) > 0.1)
+    cases = (("band, x = rhs", rhs, W, nbr, bv),
+             ("band, random x", xr, W, nbr, bv),
+             (f"first {mr} rows, 10% invalid, random x", xr[:mr], W[:mr],
+              nbr[:mr], bvr))
+    max_err = 0.0
+    for label, x, w, nb, v in cases:
+        got = pm.matvec_band(x, w, nb, v)
+        ref = pm.matvec_band_reference(x, w, nb, v)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        print(f"matvec_band {label}: max |kernel - plain| = {err:.3e} "
+              f"(max |plain| {scale:.3e})", flush=True)
+        if not err <= 1e-6 * scale:
+            fail(f"matvec_band disagrees with its plain version ({label})")
+        max_err = max(max_err, err)
+    m = rhs.shape[0]
+    n_valid = int(bv.sum())
+    ms = cuda_ms(lambda: pm.matvec_band(rhs, W, nbr, bv), 100)
+    plain_ms = cuda_ms(lambda: pm.matvec_band_reference(rhs, W, nbr, bv), 5)
+    # Valid brick: x, W read and out written; invalid brick: out written;
+    # every brick: nbr and block_valid read. Face halos hit L2.
+    nbytes = 3 * 2048 * n_valid + 2048 * (m - n_valid) + 25 * m
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"matvec_band M={m} ({n_valid} valid): {ms:.4f} ms/launch, bound "
+          f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), plain "
+          f"{plain_ms:.3f} ms, library yardstick: none", flush=True)
+    return dict(name="matvec_band", route="cuda",
+                source="structured_light_for_3d_model_replication_tpu_torch/"
+                       "csrc/matvec.cu",
+                replaces="structured_light_for_3d_model_replication_tpu/ops/"
+                         "poisson_pallas.py:130",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
+def check_classify(dev, band):
+    import torch
+    import torch.nn.functional as F
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_classify as mc,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_device,
+    )
+
+    rhs, _, nbr, bv = band
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    c9 = marching_device.corner_frame(rhs, nbr)
+    iso0 = torch.zeros((), device=dev)
+    cases = [("band corner frame, iso 0", c9, iso0, bv)]
+    # Random frames whose values sit at iso and within one ulp of it, with
+    # an iso of scan scale and with iso 0 among subnormals.
+    for label, iso in (("iso 0.0137 +- 1 ulp", 0.0137), ("iso 0 +- subnormal",
+                                                         0.0)):
+        iso_t = torch.tensor(iso, device=dev)
+        k = torch.randint(-1, 2, (4096, 729), device=dev, generator=g)
+        vals = torch.where(k < 0, torch.nextafter(iso_t, iso_t - 1),
+                           torch.where(k > 0, torch.nextafter(iso_t, iso_t + 1),
+                                       iso_t.expand(4096, 729)))
+        valid = torch.rand((4096,), device=dev, generator=g) > 0.1
+        cases.append((label, vals.contiguous(), iso_t, valid))
+    for label, c, iso, v in cases:
+        got = mc.classify_cells(c, iso, v)
+        ref = mc.classify_cells_reference(c, iso, v)
+        torch.cuda.synchronize()
+        diff = int((got != ref).sum())
+        print(f"classify_cells {label}: {int(ref.sum())} active cells, "
+              f"max |kernel - plain| = {int(diff > 0)} ({diff} cells differ)",
+              flush=True)
+        if diff:
+            fail(f"classify_cells disagrees with its plain version ({label})")
+    m = c9.shape[0]
+    ms = cuda_ms(lambda: mc.classify_cells(c9, iso0, bv), 100)
+    plain_ms = cuda_ms(lambda: mc.classify_cells_reference(c9, iso0, bv), 5)
+
+    def pooled():
+        inside = (c9 > iso0).to(torch.float32).view(m, 1, 9, 9, 9)
+        any_in = F.max_pool3d(inside, kernel_size=2, stride=1)
+        all_in = -F.max_pool3d(-inside, kernel_size=2, stride=1)
+        return ((any_in > 0.5) & (all_in < 0.5)).view(m, 512) & bv[:, None]
+
+    if not torch.equal(pooled(), mc.classify_cells(c9, iso0, bv)):
+        fail("the max_pool3d yardstick computes another function")
+    lib_ms = cuda_ms(pooled, 20)
+    nbytes = m * (729 * 4 + 512 + 1)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"classify_cells M={m}: {ms:.4f} ms/launch, bound {bound_ms:.4f} "
+          f"ms (bytes, {nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, "
+          f"library max_pool3d any/all {lib_ms:.3f} ms", flush=True)
+    return dict(name="classify_cells", route="cuda",
+                source="structured_light_for_3d_model_replication_tpu_torch/"
+                       "csrc/classify.cu",
+                replaces="structured_light_for_3d_model_replication_tpu/ops/"
+                         "marching_pallas.py:54",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full size
 # ---------------------------------------------------------------------------
@@ -204,7 +347,7 @@ def check_nearest_one(dev):
 def render_stacks(n_stops: int, step_deg: float, proj):
     """The headline bump scene, camera at the projector's resolution,
     rendered on the host with the port's numpy rig (untimed set-up).
-    Returns (stacks, rig, ground-truth points of stop 0)."""
+    Returns (stacks, rig, ground-truth points of stop 0, scene)."""
     from structured_light_for_3d_model_replication_tpu_torch.models import (
         synthetic,
     )
@@ -234,7 +377,7 @@ def render_stacks(n_stops: int, step_deg: float, proj):
 
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         list(ex.map(render, range(n_stops)))
-    return stacks, rig, gts[0]
+    return stacks, rig, gts[0], scene
 
 
 def _sync(dev) -> None:
@@ -306,7 +449,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     proj = proj or ProjectorConfig()
     step = STEP_DEG
     t0 = time.perf_counter()
-    stacks, rig, gt0 = render_stacks(n_stops, step, proj)
+    stacks, rig, gt0, scene = render_stacks(n_stops, step, proj)
     h, w = stacks.shape[2:]
     print(f"rendered {n_stops} stops x {stacks.shape[1]} frames at {h}x{w} "
           f"in {time.perf_counter() - t0:.1f} s (untimed set-up)", flush=True)
@@ -378,7 +521,107 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
         profile_run(lambda: scan360.scan_stacks_to_cloud(
             stacks, calib, proj.col_bits, proj.row_bits, params=params,
             device=dev))
+    launches.update(mesh_path(dev, merged, scene, profile=profile))
     return launches
+
+
+def surface_distance(points: np.ndarray, spheres) -> np.ndarray:
+    """Distance of each point to the surface of the union of ``spheres``
+    (exact outside the union)."""
+    d = np.full(points.shape[0], np.inf)
+    for s in spheres:
+        d = np.minimum(d, np.linalg.norm(points - np.asarray(s.center),
+                                         axis=1) - s.radius)
+    return np.abs(d)
+
+
+def mesh_path(dev, merged, scene, profile: bool = False):
+    """The main path's second half: ``mesh_360`` of the merged cloud at
+    depth 10 (trim 0, 100 CG iterations, the bench.py config 6 settings)
+    into a temporary STL, with the mesh kernels' launch counters zeroed
+    before and read after; stage times, band, mesh, peak memory, the STL
+    read back and the vertices against the scene's analytic surface."""
+    import tempfile
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        read_stl,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_classify,
+        poisson_matvec,
+    )
+
+    def cloud():  # mesh_360 writes the oriented normals into its cloud
+        return PointCloud(points=merged.points.copy(), colors=merged.colors,
+                          normals=merged.normals.copy())
+
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    poisson_matvec.matvec_band.launches = 0
+    marching_classify.classify_cells.launches = 0
+    timing, stats = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.stl")
+        t0 = time.perf_counter()
+        mesh = meshing.mesh_360(cloud(), path, depth=10, quantile_trim=0.0,
+                                cg_iters=100, timing=timing,
+                                solve_stats=stats, device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {"matvec_band": poisson_matvec.matvec_band.launches,
+                    "classify_cells":
+                        marching_classify.classify_cells.launches}
+        back = read_stl(path)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    print(f"mesh path: {len(merged)} points -> {len(mesh.vertices)} "
+          f"vertices, {len(mesh.faces)} faces in {wall:.3f} s wall; stages "
+          f"(s): " + ", ".join(f"{k}={v:.3f}" for k, v in timing.items()),
+          flush=True)
+    print(f"band {stats['n_blocks']} blocks; fine CG {stats['cg_iters_used']} "
+          f"iterations (additive), coarse {stats['coarse_iters_used']}; peak "
+          f"device memory {peak / 2**30:.2f} GiB; kernel launches {launches}",
+          flush=True)
+    dist = surface_distance(mesh.vertices.astype(np.float64),
+                            synthetic_spheres(scene))
+    med, p90 = float(np.median(dist)), float(np.percentile(dist, 90))
+    print(f"mesh vertices vs the scene's surface: median {med:.3f} mm, p90 "
+          f"{p90:.3f} mm (the watertight fill also caps unseen regions); "
+          f"STL read back: {len(back.faces)} faces", flush=True)
+    if launches["matvec_band"] != 1 + stats["cg_iters_used"]:
+        fail(f"matvec_band launched {launches['matvec_band']} times, not "
+             f"1 + {stats['cg_iters_used']} CG iterations")
+    if launches["classify_cells"] != 1:
+        fail(f"classify_cells launched {launches['classify_cells']} times, "
+             "not once")
+    if len(mesh.faces) <= 10_000:
+        fail(f"the mesh has only {len(mesh.faces)} faces")
+    if len(back.faces) != len(mesh.faces):
+        fail("the STL does not read back to the same face count")
+    if not np.isfinite(mesh.vertices).all() or med > 1.0:
+        fail(f"the mesh is {med:.3f} mm from the scene's surface (median)")
+    if profile:
+        profile_run(lambda: meshing.mesh_360(
+            cloud(), os.devnull, depth=10, quantile_trim=0.0, cg_iters=100,
+            device=dev))
+    return launches
+
+
+def synthetic_spheres(scene):
+    """The scene's spheres in the merged cloud's frame (stop 0)."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    return synthetic.rotated_scene(scene, 0.0).spheres
 
 
 def small_rig_agreement(dev) -> None:
@@ -432,6 +675,37 @@ def small_rig_agreement(dev) -> None:
     if worst > 0.5 or abs(len(m_dev) - len(m_cpu)) > 0.05 * len(m_cpu):
         fail(f"the slice on {dev.type} disagrees with the host run")
 
+    # On to the mesh at depth 9 on each device, compared by outcome (the
+    # clouds differ by their RANSAC draws and the splats by atomic sums):
+    # face counts within 3%, median vertex-to-vertex distance between the
+    # two meshes ≤ 0.25 voxel. A block budget near the band's ~14k blocks
+    # keeps the host run's fields small (every field spans the budget).
+    from scipy.spatial import cKDTree
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+
+    meshes = {}
+    for d, m in ((dev, m_dev), (torch.device("cpu"), m_cpu)):
+        t0 = time.perf_counter()
+        meshes[d.type] = meshing.mesh_from_cloud(
+            m, depth=9, quantile_trim=0.0, cg_iters=100, max_blocks=32_768,
+            device=d)
+        print(f"small rig mesh on {d.type}: {len(meshes[d.type].faces)} "
+              f"faces in {time.perf_counter() - t0:.2f} s", flush=True)
+    a, b = meshes[dev.type], meshes["cpu"]
+    pts = np.asarray(m_cpu.points, np.float64)
+    voxel = 1.2 * float((pts.max(0) - pts.min(0)).max()) / (2 ** 9 - 1)
+    gap = np.concatenate([cKDTree(b.vertices).query(a.vertices)[0],
+                          cKDTree(a.vertices).query(b.vertices)[0]])
+    med = float(np.median(gap)) / voxel
+    print(f"small rig mesh, {dev.type} vs cpu: {len(a.faces)} vs "
+          f"{len(b.faces)} faces, median vertex gap {med:.4f} voxel",
+          flush=True)
+    if abs(len(a.faces) - len(b.faces)) > 0.03 * len(b.faces) or med > 0.25:
+        fail(f"the mesh on {dev.type} disagrees with the host run")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -471,7 +745,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    kernels = [check_decode(dev), check_nearest_one(dev)]
+    band = sphere_band(dev)
+    kernels = [check_decode(dev), check_nearest_one(dev),
+               check_matvec(dev, band), check_classify(dev, band)]
+    del band
     if args.kernels_only:
         return 0
     launches = main_path(dev, N_STOPS, profile=args.profile)

@@ -1,6 +1,8 @@
-"""Device resolution shared by the public entry points."""
+"""Device resolution and stage clocks shared by the public entry points."""
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -23,3 +25,16 @@ def div(x: torch.Tensor, s: float) -> torch.Tensor:
     rounds differently from the JAX package's division — and these
     quotients feed ``floor`` (voxel cells, histogram bins, strides)."""
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def stage_clock(dev: torch.device, timing: dict | None):
+    """Wall-clock reader for stage edges: drains the device first when
+    stage times are asked for (``timing`` given), and is free (returns 0.0)
+    otherwise."""
+    def clock() -> float:
+        if timing is None:
+            return 0.0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+    return clock

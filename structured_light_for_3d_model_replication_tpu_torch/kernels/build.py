@@ -1,8 +1,9 @@
 """Compile ``csrc/*.cu`` with ``nvcc`` into one shared library with a plain
 C interface, at first use, and load it with ``ctypes``.
 
-One ``nvcc -gencode arch=compute_90a,code=sm_90a`` call builds every source
-into ``build/torch_kernels/libslkernels_<hash>.so`` at the repository root
+Every source is compiled for ``sm_90a`` by its own ``nvcc -c``, all started
+together, and one more ``nvcc -shared`` links the objects into
+``build/torch_kernels/libslkernels_<hash>.so`` at the repository root
 (git-ignored). The hash covers the sources and the flags, so a source change
 rebuilds; an existing library with the right hash is loaded as is. The
 library is written under a temporary name and renamed into place, so
@@ -25,8 +26,11 @@ log = logging.getLogger(__name__)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# No --use_fast_math and no -ftz=true: classify compares against iso with
+# gradual underflow, and matvec rounds op by op like its plain version.
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+          "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +41,10 @@ _SIGNATURES = {
     "sl_decode_maps": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _P),
     # queries, keys_t, p2v, partial, d2, idx, M, N, splits, stream
     "sl_nearest_one": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P),
+    # x, W, nbr, block_valid, out, M, stream
+    "sl_matvec_band": (_P, _P, _P, _P, _P, _L, _P),
+    # c9, iso, block_valid, active, M, stream
+    "sl_classify_cells": (_P, _P, _P, _P, _L, _P),
 }
 
 _lock = threading.Lock()
@@ -69,18 +77,37 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libslkernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise on the first failure. Returns
+    their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{o}")
+    return "".join(outs)
+
+
 def _compile(out: Path) -> None:
     global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in _sources()]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_log = proc.stdout + proc.stderr
+    try:
+        build_log = _run([[nvcc, *_FLAGS, "-c", "-o", str(o), str(src)]
+                          for src, o in zip(_sources(), objs)])
+        build_log += _run([[nvcc, *_ARCH, "-shared", "-o", str(tmp),
+                            *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     log.info("built %s in %.1f s", out.name, build_seconds)
 

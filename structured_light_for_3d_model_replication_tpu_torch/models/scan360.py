@@ -16,12 +16,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 
 import numpy as np
 import torch
 
-from .._device import div, resolve_device
+from .._device import div, resolve_device, stage_clock
 from ..config import DecodeConfig, TriangulationConfig
 from ..ops import pointcloud, posegraph, registration
 from ..ops.triangulate import Calibration
@@ -95,18 +94,6 @@ def _edge_stats(fit, rmse) -> dict:
             "mean_fitness": round(float(np.mean(fits)), 4) if fits else None}
 
 
-def _stage_clock(dev: torch.device, timing: dict | None):
-    """Wall-clock reader for the stage edges: drains the device first when
-    stage times are asked for, and is free (returns 0.0) otherwise."""
-    def clock() -> float:
-        if timing is None:
-            return 0.0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
-    return clock
-
-
 def scan_stacks_to_cloud(stacks, calib: Calibration, col_bits: int,
                          row_bits: int,
                          params: Scan360Params = Scan360Params(),
@@ -136,7 +123,7 @@ def scan_stacks_to_cloud(stacks, calib: Calibration, col_bits: int,
         raise ValueError(f"need at least 2 stops, got {n}")
     mp = params.merge
     chunk = max(1, min(params.stop_chunk, n))
-    clock = _stage_clock(dev, timing)
+    clock = stage_clock(dev, timing)
     t0 = clock()
 
     # 1. Decode + triangulate, one chunk of stops at a time. Only the dense

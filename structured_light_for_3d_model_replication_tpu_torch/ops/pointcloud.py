@@ -257,3 +257,16 @@ def estimate_normals(points: torch.Tensor, valid: torch.Tensor | None = None,
     normals = smallest_eigenvector_sym3(C)
     nvalid = valid & (nbv.sum(1) >= 3)
     return normals, nvalid
+
+
+def orient_normals(points: torch.Tensor, normals: torch.Tensor,
+                   location: torch.Tensor, outward: bool = False):
+    """Flip normals to point toward ``location`` (camera convention,
+    `server/processing.py:273`) or away from it (``outward=True`` — the
+    reference's radial trick of orienting at the cloud centre then
+    negating, `server/processing.py:274-276`)."""
+    to_loc = location[None, :] - points
+    dots = (normals * to_loc).sum(-1, keepdim=True)
+    flip = torch.logical_xor(dots < 0.0, torch.tensor(outward,
+                                                      device=dots.device))
+    return torch.where(flip, -normals, normals)
