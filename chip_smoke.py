@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port on one NVIDIA GPU:
 ``structured_light_for_3d_model_replication_tpu_torch``, from stacks to the
-merged 360° cloud and on to the printable STL, with its CUDA kernels.
+merged 360° cloud and on to the printable STL, and through the streaming
+session, with its CUDA kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
@@ -14,7 +15,7 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build of the CUDA kernels from ``csrc/`` (one ``nvcc -c`` per source, all
    started together, then one link), with its time;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at ragged ones, then timed with CUDA events beside its
+   paths' shapes and at ragged ones, then timed with CUDA events beside its
    bound, its plain version and, where one exists, a library yardstick;
 4. the main path at full size — 24 stops × 15°, 1080×1920 camera, 1920×1080
    projector, 46 frames (the repository's headline 360° configuration) —
@@ -24,9 +25,22 @@ Phases, in order; any failure exits non-zero before the result line:
    times, peak memory, the merged cloud and every pose against the
    commanded turntable angle, the band, the CG iterations, the mesh against
    the scene's analytic surface and the STL read back;
-5. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, on
-   the card and on the host (the plain versions), compared by outcome;
-6. a ``kernels`` JSON line, the card line again, and last the result line
+5. the streaming path on the same 24-stop ring through
+   ``IncrementalSession.add_stop`` ×24 → ``finalize(overlap=True)``:
+   session T in the default ``"tsdf"`` lane (TSDF previews after every stop,
+   a coloured TSDF final mesh read back from PLY) and session P in the
+   ``"poisson"`` lane (coarse Poisson previews warm-starting the depth-10
+   final), each with its kernels' launch counters zeroed before and read
+   after. Session T runs bench config 11's settings (sequential finalize,
+   covisibility gate on) and must skip the stops the JAX package's session
+   skips on this ring; session P runs the pose graph (loop edge, LM)
+   with the gate off. Then ``mesh_from_cloud(representation="tsdf")`` of
+   session T's cloud twice in sequence and once through
+   ``mesh_from_cloud_async``, compared bit for bit;
+6. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, and
+   a 4-stop TSDF session, on the card and on the host (the plain versions),
+   compared by outcome;
+7. a ``kernels`` JSON line, the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -50,6 +64,10 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # non-tensor fp32, H100 SXM data sheet
 NN_FLOPS_PER_PAIR = 8          # 3 sub, 3 mul, 2 add
 N_STOPS, STEP_DEG = 24, 15.0   # the headline ring (bench.py:337-380)
+# What the JAX package's session decides on this ring with the covisibility
+# gate on (scripts/torch_gate_witness.py): the model test skips the last two
+# stops, whose views the fused ring already covers.
+REFERENCE_SKIPS = ((22, "skipped_covisible"), (23, "skipped_covisible"))
 
 
 def fail(msg: str) -> None:
@@ -339,6 +357,77 @@ def check_classify(dev, band):
                 bound_by="bytes", library_ms=lib_ms)
 
 
+def check_combine(dev):
+    """``tsdf_combine`` against its plain version at session T's 16,384
+    brick slots (random state) and at a ragged 1,000 slots with ``den = 0``
+    over half the voxels and weights at and above the clamp; out of place
+    and in place (the volume's own update). Exact: the kernel rounds op by
+    op like the plain version."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        tsdf_combine as tc,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    wmax = 64.0
+
+    def state(cap, half_empty):
+        def u(*shape, lo=0.0, hi=1.0):
+            return torch.rand(shape, device=dev, generator=g) * (hi - lo) + lo
+        tsdf, weight = u(cap, 512, lo=-1.0), u(cap, 512, hi=2.0 * wmax)
+        rgb = u(cap, 512, 3, hi=255.0)
+        den = u(cap, 512, hi=4.0)
+        if half_empty:
+            den = torch.where(torch.rand((cap, 512), device=dev,
+                                         generator=g) < 0.5,
+                              torch.zeros((), device=dev), den)
+            weight[:, ::7] = wmax        # exactly at the clamp
+        num = den * u(cap, 512, lo=-1.0)
+        rgbnum = den[..., None] * u(cap, 512, 3, hi=255.0)
+        return tsdf, weight, rgb, num, den, rgbnum
+
+    max_err = 0.0
+    main = None
+    for label, cap, half in (("16384 slots, random state", 16_384, False),
+                             ("1000 slots, den = 0 on half, weights at and "
+                              "above the clamp", 1_000, True)):
+        args = state(cap, half)
+        ref = tc.tsdf_combine_reference(*args, wmax)
+        got = tc.tsdf_combine(*args, wmax)
+        inplace = tuple(a.clone() for a in args[:3])
+        tc.tsdf_combine(*inplace, *args[3:], wmax, out=inplace)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        err_in = max(float((a - b).abs().max()) for a, b in zip(inplace, ref))
+        print(f"tsdf_combine {label}: max |kernel - plain| = {err:.3e}, in "
+              f"place {err_in:.3e}", flush=True)
+        if err != 0.0 or err_in != 0.0:
+            fail(f"tsdf_combine disagrees with its plain version ({label})")
+        max_err = max(max_err, err, err_in)
+        if main is None:
+            main = args
+    cap = main[0].shape[0]
+    out = tuple(torch.empty_like(a) for a in main[:3])
+    ms = cuda_ms(lambda: tc.tsdf_combine(*main, wmax, out=out), 100)
+    plain_ms = cuda_ms(lambda: tc.tsdf_combine_reference(*main, wmax), 10)
+    # Per voxel: tsdf, weight, num, den, rgb (3), rgbnum (3) read; tsdf,
+    # weight, rgb (3) written.
+    nbytes = 60 * cap * 512
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"tsdf_combine cap={cap}: {ms:.4f} ms/launch, bound "
+          f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), plain "
+          f"{plain_ms:.3f} ms, library yardstick: none", flush=True)
+    return dict(name="tsdf_combine", route="cuda",
+                source="structured_light_for_3d_model_replication_tpu_torch/"
+                       "csrc/combine.cu",
+                replaces="structured_light_for_3d_model_replication_tpu/ops/"
+                         "tsdf_pallas.py:55",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full size
 # ---------------------------------------------------------------------------
@@ -427,7 +516,9 @@ def profile_run(run, top: int = 15) -> None:
 def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     """Drive ``scan_stacks_to_cloud`` once at full size (1920×1080
     projector unless ``proj`` says otherwise) and check what comes out;
-    with ``profile`` run it once more under the profiler."""
+    with ``profile`` run it once more under the profiler. Returns the
+    launch counts and the rendered ring (stacks, calibration, projector,
+    scene) for the streaming phase."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.config import (
@@ -522,7 +613,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
             stacks, calib, proj.col_bits, proj.row_bits, params=params,
             device=dev))
     launches.update(mesh_path(dev, merged, scene, profile=profile))
-    return launches
+    return launches, dict(stacks=stacks, calib=calib, proj=proj, scene=scene)
 
 
 def surface_distance(points: np.ndarray, spheres) -> np.ndarray:
@@ -615,6 +706,246 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the streaming path on the same ring
+# ---------------------------------------------------------------------------
+
+
+def rotation_deg(R: np.ndarray) -> float:
+    """Rotation angle of a 3×3 rotation, degrees."""
+    R = np.asarray(R, np.float64)
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1,
+                                              1))))
+
+
+def pose_error(poses: np.ndarray, step: float) -> float:
+    """Worst |rotation angle of pose k − k·step| over the ring, degrees."""
+    worst = 0.0
+    for k in range(poses.shape[0]):
+        ang = rotation_deg(poses[k][:3, :3])
+        cmd = (k * step) % 360.0
+        worst = max(worst, abs(ang - min(cmd, 360.0 - cmd)))
+    return worst
+
+
+def stream_params(representation: str):
+    """Session T (``"tsdf"``) runs bench config 11's settings
+    (bench.py:898-905) on the headline ring as they stand: the sequential
+    finalize and the covisibility gate on. Session P (``"poisson"``, config
+    6b's lane) runs the ``StreamParams`` default ``method="posegraph"``, so
+    the loop edge and the full pose graph run on the card too, with the gate
+    off: on this ring the gate skips stops 22 and 23, and the JAX package's
+    pose-graph finalize then registers a 45° loop edge from a 15° hint and
+    lands its cloud 14 mm off the surface, as the port's does
+    (``scripts/torch_gate_witness.py``; ROADMAP Queue 3)."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        StreamParams,
+    )
+
+    lane = dict(method="sequential") if representation == "tsdf" \
+        else dict(method="posegraph", covis=False)
+    return StreamParams(
+        merge=merge.MergeParams(voxel_size=3.0, final_max_points=131_072,
+                                step_deg=STEP_DEG),
+        view_cap=16_384, model_cap=131_072, preview_points=16_384,
+        preview_depth=6, final_depth=10, representation=representation,
+        tsdf_grid_depth=8, tsdf_max_bricks=16_384, **lane)
+
+
+def run_session(dev, ring, representation: str, counters):
+    """24 × ``add_stop`` then ``finalize(overlap=True)``, the launch
+    counters zeroed just before and read just after. Returns (session,
+    finalize result, launches, [(stop, reason, overlap)] of the skipped)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+    )
+
+    proj = ring["proj"]
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sess = IncrementalSession(ring["calib"], proj.col_bits, proj.row_bits,
+                              params=stream_params(representation),
+                              scan_id=f"smoke-{representation}", device=dev)
+    metas, first_preview_s, cg, skipped = [], None, [], []
+    for k in range(N_STOPS):
+        r = sess.add_stop(ring["stacks"][k])
+        if not r.fused:
+            skipped.append((k, r.reason, round(r.overlap or 0.0, 5)))
+        if r.preview:
+            metas.append(dict(sess.preview_meta))
+            if first_preview_s is None:
+                first_preview_s = time.perf_counter() - t0
+            if sess.previewer.last_cg_iters is not None:
+                cg.append(sess.previewer.last_cg_iters)
+    t1 = time.perf_counter()
+    fin = sess.finalize(mesh=True, overlap=True)
+    _sync(dev)
+    finalize_s = time.perf_counter() - t1
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    per_stop = [m["integrate_s"] + m["preview_s"] for m in metas]
+    print(f"session {representation}: {sess.stops_fused} stops fused, "
+          f"{sess.stops_skipped} skipped {skipped}; first preview "
+          f"{first_preview_s:.3f}"
+          f" s after the first add_stop; per-stop integrate + preview median "
+          f"{np.median(per_stop):.4f} s (min {min(per_stop):.4f}, max "
+          f"{max(per_stop):.4f}); preview faces per stop "
+          f"{[m['faces'] for m in metas]}; "
+          f"stops wall {t1 - t0:.3f} s, finalize {finalize_s:.3f} s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; kernel launches {launches}",
+          flush=True)
+    if cg:
+        print(f"session {representation}: preview CG iterations {cg}",
+              flush=True)
+    if not metas or metas[0]["stops_fused"] != 1 or metas[0]["faces"] == 0:
+        fail(f"session {representation}: no preview after the first stop")
+    worst = pose_error(fin.poses, STEP_DEG)
+    print(f"session {representation}: {len(fin.cloud)} cloud points, worst "
+          f"final pose error {worst:.3f} deg, stats: " + json.dumps(
+              {k: v for k, v in fin.stats.items() if k != "edges"}),
+          flush=True)
+    if sess.stops_fused + sess.stops_skipped != N_STOPS:
+        fail(f"session {representation} handled "
+             f"{sess.stops_fused + sess.stops_skipped} of {N_STOPS} stops")
+    if worst > 2.0:
+        fail(f"session {representation}: a final pose is {worst:.3f} deg "
+             "off its commanded angle")
+    if not fin.stats.get("overlap", {}).get("overlapped"):
+        fail(f"session {representation}: the finalize mesh did not overlap "
+             "the tail")
+    for name in ("decode_maps", "nearest_one"):
+        if launches[name] <= 0:
+            fail(f"session {representation} never launched {name}")
+    return sess, fin, launches, skipped
+
+
+def stream_path(dev, ring):
+    """Sessions T (``"tsdf"``) and P (``"poisson"``) on the headline ring,
+    then the overlap check on session T's cloud. Returns session T's
+    launch counts."""
+    import tempfile
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+        read_ply_mesh,
+        write_ply_mesh,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        decode,
+        marching_classify,
+        nn,
+        poisson_matvec,
+        tsdf_combine,
+    )
+
+    counters = {"decode_maps": decode.decode_maps,
+                "nearest_one": nn.nearest_one,
+                "matvec_band": poisson_matvec.matvec_band,
+                "classify_cells": marching_classify.classify_cells,
+                "tsdf_combine": tsdf_combine.tsdf_combine}
+    spheres = synthetic_spheres(ring["scene"])
+
+    # Session T: the default lane at full width, the gate on.
+    sess, fin, launches_t, skipped = run_session(dev, ring, "tsdf", counters)
+    if [(k, why) for k, why, _ in skipped] != list(REFERENCE_SKIPS):
+        fail(f"session tsdf skipped {skipped}, the JAX package's session on "
+             f"this ring {list(REFERENCE_SKIPS)}")
+    vol = sess.previewer.stats()
+    print(f"session tsdf: volume {vol['bricks']} bricks of "
+          f"{vol['max_bricks']} ({vol['bricks_wanted']} wanted), voxel "
+          f"{vol['voxel_size']} mm", flush=True)
+    mesh = fin.mesh
+    dist = surface_distance(mesh.vertices.astype(np.float64), spheres)
+    med, p90 = float(np.median(dist)), float(np.percentile(dist, 90))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.ply")
+        write_ply_mesh(path, mesh)
+        back = read_ply_mesh(path)
+    print(f"session tsdf final mesh: {len(mesh.vertices)} vertices, "
+          f"{len(mesh.faces)} faces, vertex colours "
+          f"{mesh.vertex_colors is not None}; vs the scene's surface median "
+          f"{med:.3f} mm, p90 {p90:.3f} mm; PLY read back {len(back.faces)} "
+          f"faces, colours {back.vertex_colors is not None}", flush=True)
+    if launches_t["tsdf_combine"] != sess.stops_fused + 1:
+        fail(f"tsdf_combine launched {launches_t['tsdf_combine']} times, not "
+             f"{sess.stops_fused} fused stops + 1 final mesh")
+    if len(mesh.faces) <= 10_000 or mesh.vertex_colors is None:
+        fail(f"session tsdf: final mesh of {len(mesh.faces)} faces, colours "
+             f"{mesh.vertex_colors is not None}")
+    if not np.isfinite(mesh.vertices).all() or med > 1.0:
+        fail(f"session tsdf: the final mesh is {med:.3f} mm from the "
+             "scene's surface (median)")
+    if len(back.faces) != len(mesh.faces) or back.vertex_colors is None:
+        fail("session tsdf: the PLY does not read back to the same mesh")
+
+    # Overlap check: sequential twice, then the pipelined worker.
+    def cloud():
+        c = fin.cloud
+        return PointCloud(points=c.points.copy(), colors=c.colors.copy(),
+                          normals=c.normals.copy())
+
+    kw = dict(representation="tsdf", depth=10, tsdf_max_bricks=16_384,
+              device=dev)
+    seq = [meshing.mesh_from_cloud(cloud(), **kw) for _ in range(2)]
+    asy = meshing.mesh_from_cloud_async(cloud(), task_name="smoke", **kw)
+    asy = asy.result()
+    for label, a, b in (("seq vs seq", seq[0], seq[1]),
+                        ("seq vs async", seq[0], asy)):
+        same_shape = a.vertices.shape == b.vertices.shape \
+            and a.faces.shape == b.faces.shape
+        equal = same_shape and np.array_equal(a.vertices, b.vertices) \
+            and np.array_equal(a.faces, b.faces) \
+            and np.array_equal(a.vertex_colors, b.vertex_colors)
+        gap = float(np.abs(a.vertices - b.vertices).max()) if same_shape \
+            else float("nan")
+        print(f"overlap check {label}: bit-equal {equal}; {len(a.faces)} vs "
+              f"{len(b.faces)} faces, {len(a.vertices)} vs {len(b.vertices)}"
+              f" vertices, max |vertex gap| {gap:.3e} mm", flush=True)
+        if label == "seq vs seq":
+            seq_equal = equal
+        elif seq_equal and not equal:
+            fail("mesh_from_cloud_async differs from mesh_from_cloud while "
+                 "two sequential calls agree")
+
+    # Session P: the "poisson" lane.
+    sess_p, fin_p, launches_p, _ = run_session(dev, ring, "poisson",
+                                               counters)
+    solve = fin_p.stats.get("final_solve", {})
+    dist = surface_distance(fin_p.mesh.vertices.astype(np.float64), spheres)
+    med_p = float(np.median(dist))
+    print(f"session poisson final mesh: {len(fin_p.mesh.faces)} faces, vs the"
+          f" scene's surface median {med_p:.3f} mm, p90 "
+          f"{np.percentile(dist, 90):.3f} mm; final solve {json.dumps(solve)}",
+          flush=True)
+    if not np.isfinite(fin_p.mesh.vertices).all() or med_p > 1.0:
+        fail(f"session poisson: the final mesh is {med_p:.3f} mm from the "
+             "scene's surface (median)")
+    if solve.get("warm_start_blocks", 0) <= 0:
+        fail("session poisson: the previews did not warm-start the final "
+             "solve")
+    if launches_p["matvec_band"] != 1 + solve["cg_iters_used"]:
+        fail(f"session poisson: matvec_band launched "
+             f"{launches_p['matvec_band']} times, not 1 + "
+             f"{solve['cg_iters_used']}")
+    if launches_p["classify_cells"] != 1 or launches_p["tsdf_combine"] != 0:
+        fail(f"session poisson: classify_cells {launches_p['classify_cells']}"
+             f" launches (want 1), tsdf_combine "
+             f"{launches_p['tsdf_combine']} (want 0)")
+    return launches_t
+
+
 def synthetic_spheres(scene):
     """The scene's spheres in the merged cloud's frame (stop 0)."""
     from structured_light_for_3d_model_replication_tpu_torch.models import (
@@ -705,6 +1036,53 @@ def small_rig_agreement(dev) -> None:
           flush=True)
     if abs(len(a.faces) - len(b.faces)) > 0.03 * len(b.faces) or med > 0.25:
         fail(f"the mesh on {dev.type} disagrees with the host run")
+    small_rig_stream(dev, stacks, rig, proj)
+
+
+def small_rig_stream(dev, stacks, rig, proj) -> None:
+    """A 4-stop TSDF-lane session on the small rig, on the card and on the
+    host, compared by outcome: fused stops equal, poses within 0.5°, final
+    faces within 1%."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+        StreamParams,
+    )
+
+    h, w = stacks.shape[2:]
+    sp = StreamParams(
+        merge=merge.MergeParams(voxel_size=6.0, ransac_iterations=2048,
+                                icp_iterations=20, fpfh_max_nn=32,
+                                normals_k=12, max_points=2048,
+                                posegraph_iterations=20, step_deg=10.0,
+                                final_max_points=4096),
+        view_cap=8192, model_cap=32_768, window=3, final_depth=8,
+        tsdf_grid_depth=6, tsdf_max_bricks=1024)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        calib = make_calibration(*rig, h, w, proj.width, proj.height,
+                                 device=d)
+        sess = IncrementalSession(calib, proj.col_bits, proj.row_bits,
+                                  params=sp, device=d)
+        for k in range(stacks.shape[0]):
+            sess.add_stop(stacks[k])
+        out[d.type] = (sess.stops_fused, sess.finalize(mesh=True))
+    (nf_d, f_d), (nf_c, f_c) = out[dev.type], out["cpu"]
+    gap = max(rotation_deg(f_d.poses[i][:3, :3] @ f_c.poses[i][:3, :3].T)
+              for i in range(len(f_c.poses)))
+    a, b = len(f_d.mesh.faces), len(f_c.mesh.faces)
+    print(f"small rig TSDF session, {dev.type} vs cpu: {nf_d} vs {nf_c} "
+          f"fused stops, worst pose gap {gap:.4f} deg, final mesh {a} vs {b}"
+          f" faces", flush=True)
+    if nf_d != nf_c or gap > 0.5 or abs(a - b) > 0.01 * b:
+        fail(f"the TSDF session on {dev.type} disagrees with the host run")
 
 
 def main() -> int:
@@ -747,11 +1125,14 @@ def main() -> int:
 
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
-               check_matvec(dev, band), check_classify(dev, band)]
+               check_matvec(dev, band), check_classify(dev, band),
+               check_combine(dev)]
     del band
     if args.kernels_only:
         return 0
-    launches = main_path(dev, N_STOPS, profile=args.profile)
+    launches, ring = main_path(dev, N_STOPS, profile=args.profile)
+    launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
+    del ring
     small_rig_agreement(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -28,7 +28,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math and no -ftz=true: classify compares against iso with
-# gradual underflow, and matvec rounds op by op like its plain version.
+# gradual underflow, and matvec and the TSDF combine round op by op (true
+# division included) like their plain versions.
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
           "-v")
 
@@ -45,6 +46,10 @@ _SIGNATURES = {
     "sl_matvec_band": (_P, _P, _P, _P, _P, _L, _P),
     # c9, iso, block_valid, active, M, stream
     "sl_classify_cells": (_P, _P, _P, _P, _L, _P),
+    # tsdf, weight, rgb, num, den, rgbnum, tsdf_out, weight_out, rgb_out,
+    # n, max_weight, stream
+    "sl_tsdf_combine": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
+                        ctypes.c_float, _P),
 }
 
 _lock = threading.Lock()

@@ -8,9 +8,14 @@ accumulate the chained transform; finish with voxel downsample +
 statistical outlier removal + normal re-estimation.
 
 The JAX package's "loop" ring strategy is the one ported: a Python loop
-over stops and edges, each edge seeded with its predecessor's transform.
-RANSAC draws come from one seeded ``torch.Generator``, so the random
-streams differ from the JAX package's ``jax.random`` keys.
+over stops and edges, each edge seeded with its predecessor's transform,
+with the optional loop-closure edge 0 → N−1 last. Each edge's RANSAC draws
+come from its own ``torch.Generator`` seeded from (seed, edge index)
+(:func:`edge_generator`), so a streaming session that registers the same
+edges one stop at a time (:func:`preprocess_registration_view`,
+:func:`register_edge`, :func:`axis_prior_pass`) draws the same numbers as
+the batch ring. The streams differ from the JAX package's ``jax.random``
+keys.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ class MergeParams:
     normals_k: int = 30
     final_nb_neighbors: int = 20      # final SOR (`server/processing.py:174`)
     final_std_ratio: float = 2.0
+    loop_closure: bool = True         # pose-graph method only
+    posegraph_iterations: int = 50
     # Turntable-axis pose prior: every ring edge measures the same rigid
     # step, so a robust consensus of the edge screws seeds a second, tight
     # ICP pass that each edge keeps unless it is clearly worse.
@@ -116,16 +123,27 @@ def _register_edge(params: MergeParams, s_pts, s_val, s_feat, d_pts, d_val,
     return fine.transformation, fine.fitness, fine.inlier_rmse, info
 
 
-def _ring_edge_indices(n: int):
-    """(src, dst) stop indices of the sequential ring edges i+1 → i."""
-    return tuple(range(1, n)), tuple(range(0, n - 1))
+def edge_generator(seed: int, edge: int, device) -> torch.Generator:
+    """The RANSAC generator of ring edge ``edge`` (sequential edges in ring
+    order, the loop edge last), seeded from (seed, edge index)."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) << 20) + int(edge))
+    return g
 
 
-def _edge_xs(pre, n: int):
+def _ring_edge_indices(n: int, loop_closure: bool = False):
+    """(src, dst) stop indices of the ring's edges: sequential edges
+    i+1 → i, then the optional loop edge 0 → N−1."""
+    src = tuple(range(1, n)) + ((0,) if loop_closure else ())
+    dst = tuple(range(0, n - 1)) + ((n - 1,) if loop_closure else ())
+    return src, dst
+
+
+def _edge_xs(pre, n: int, loop_closure: bool = False):
     """Per-edge registration inputs from per-stop preprocess tuples
     ``(pts, valid, normals, feat)``: the positional layout every edge
     registration unpacks."""
-    src_ix, dst_ix = _ring_edge_indices(n)
+    src_ix, dst_ix = _ring_edge_indices(n, loop_closure)
     return [(pre[s][0], pre[s][1], pre[s][3],
              pre[d][0], pre[d][1], pre[d][2], pre[d][3])
             for s, d in zip(src_ix, dst_ix)]
@@ -196,33 +214,67 @@ def _axis_prior_pass(params: MergeParams, xs, outs):
             torch.where(use2[:, None, None], info2, infos))
 
 
+def preprocess_registration_view(points, valid, params: MergeParams):
+    """One stop's registration preprocess (voxel → normals → FPFH), the
+    per-stop half of an incremental ring. Returns the ``(pts, valid,
+    normals, feat)`` tuple :func:`register_edge` consumes."""
+    return _preprocess(points, valid, params.voxel_size, params.normals_k,
+                       params.fpfh_max_nn)
+
+
+def register_edge(src_prep, dst_prep, params: MergeParams,
+                  generator: torch.Generator, hint=None):
+    """One ring edge, src registered onto dst, from two
+    :func:`preprocess_registration_view` tuples: the per-edge half of an
+    incremental ring. ``hint`` (the previous edge's transform) joins the
+    candidate set. Returns ``(T, fitness, rmse, info)`` device tensors."""
+    s_pts, s_val, _, s_feat = src_prep
+    d_pts, d_val, d_nrm, d_feat = dst_prep
+    if hint is None:
+        hint = torch.eye(4, dtype=torch.float32, device=s_pts.device)
+    return _register_edge(params, s_pts, s_val, s_feat, d_pts, d_val, d_nrm,
+                          d_feat, generator, hint)
+
+
+def axis_prior_pass(preps, outs, params: MergeParams,
+                    loop_closure: bool = False):
+    """The turntable-axis re-pass over a registered ring, from its retained
+    per-stop preprocesses (``outs`` = stacked (Ts, fit, rmse, infos) in
+    ring order, the loop edge last)."""
+    return _axis_prior_pass(params, _edge_xs(preps, len(preps),
+                                             loop_closure), outs)
+
+
 def register_sequence(points: torch.Tensor, valid: torch.Tensor,
-                      params: MergeParams,
-                      generator: torch.Generator | None = None):
+                      params: MergeParams, seed: int = 0,
+                      loop_closure: bool = False):
     """Edge transforms for the ring: edge i maps scan i+1 into scan i's
-    frame. ``points`` is the (N, M, 3) registration stack with its (N, M)
-    valid mask. Returns (Ts (N-1, 4, 4), infos (N-1, 6, 6), fitness list,
-    rmse list)."""
+    frame; the optional loop edge (last) maps scan 0 into scan N−1's frame.
+    ``points`` is the (N, M, 3) registration stack with its (N, M) valid
+    mask; edge e draws from :func:`edge_generator` ``(seed, e)``. Returns
+    (Ts (E, 4, 4), infos (E, 6, 6), fitness list, rmse list)."""
     n = points.shape[0]
-    pre = [_preprocess(points[i], valid[i], params.voxel_size,
-                       params.normals_k, params.fpfh_max_nn)
+    pre = [preprocess_registration_view(points[i], valid[i], params)
            for i in range(n)]
-    xs = _edge_xs(pre, n)
-    hint = torch.eye(4, dtype=torch.float32, device=points.device)
+    hint = None
     outs = []
-    for x in xs:
-        out = _register_edge(params, *x, generator, hint)
+    for e, (s, d) in enumerate(zip(*_ring_edge_indices(n, loop_closure))):
+        out = register_edge(pre[s], pre[d], params,
+                            edge_generator(seed, e, points.device), hint)
         outs.append(out)
-        hint = out[0]
+        if e < n - 1:
+            hint = out[0]
     Ts, fit, rmse, infos = (torch.stack(c) for c in zip(*outs))
     if params.axis_prior and len(outs) >= 3:
-        Ts, fit, rmse, infos = _axis_prior_pass(params, xs,
-                                                (Ts, fit, rmse, infos))
+        Ts, fit, rmse, infos = axis_prior_pass(pre, (Ts, fit, rmse, infos),
+                                               params, loop_closure)
     fit_np = fit.cpu().numpy()
     rmse_np = rmse.cpu().numpy()
     for i in range(1, n):
         log.info("edge %d→%d fitness=%.3f rmse=%.4f", i, i - 1,
                  fit_np[i - 1], rmse_np[i - 1])
+    if loop_closure:
+        log.info("loop edge 0→%d fitness=%.3f", n - 1, fit_np[n - 1])
     return Ts, infos, list(fit_np), list(rmse_np)
 
 

@@ -12,14 +12,17 @@ The analogue of the reference's `ProcessingLogic.reconstruct_stl`
   like the reference's try/except at `:284-289`;
 * ``"camera"``  — toward an explicit camera location.
 
-Mode ``"watertight"`` with representation ``"poisson"``: depth ≤ 8 solves
-on a dense grid (:mod:`..ops.poisson`), depth 9-13 on the band-sparse one
+Representation ``"poisson"`` (and its alias ``"archival"``, the streaming
+session's watertight final format): depth ≤ 8 solves on a dense grid
+(:mod:`..ops.poisson`), depth 9-13 on the band-sparse one
 (:mod:`..ops.poisson_sparse`, kernel ``csrc/matvec.cu``), extracted by the
 device marching extractor on the card (kernel ``csrc/classify.cu``) or by
-the host oracle. Not ported yet, each raising an error that names the
-ROADMAP step that brings it: mode ``"surface"`` (native ball pivoting,
-step 9), representations ``"tsdf"`` and ``"archival"`` (step 5),
-``cg_x0`` and :func:`mesh_from_cloud_async` (step 5), ``device_mesh``
+the host oracle; ``cg_x0`` warm-starts either solve. Representation
+``"tsdf"`` fuses the oriented cloud into a brick-pool TSDF (:mod:`..fusion`,
+kernel ``csrc/combine.cu``) and extracts a vertex-coloured mesh.
+:func:`mesh_from_cloud_async` runs the same call on a pipelined worker. Not
+ported yet, each raising an error that names the ROADMAP step that brings
+it: mode ``"surface"`` (native ball pivoting, step 9), ``device_mesh``
 (step 8).
 """
 
@@ -99,6 +102,7 @@ def mesh_from_cloud(
     extraction: str = "auto",
     max_blocks: int | None = None,
     representation: str = "poisson",
+    tsdf_max_bricks: int = 8192,
     cg_x0=None,
     device_mesh=None,
     solve_stats: dict | None = None,
@@ -116,6 +120,15 @@ def mesh_from_cloud(
     overflow retry) and ``extraction`` (``"auto"`` = device marching on the
     card, the host oracle for a CPU run; ``"host"``; ``"device"``).
     ``solve_stats`` (a caller's dict) receives the sparse solver's stats.
+    ``cg_x0`` warm-starts the Poisson solve: at depth ≤ 8 a χ tensor at the
+    solve resolution seeds the CG; at depth > 8 a dense
+    :class:`..ops.poisson.PoissonGrid` (a streaming preview's last grid)
+    warm-starts the internal coarse solve and a
+    :class:`..ops.poisson_sparse.SparsePoissonGrid` reseeds the band.
+    ``representation="tsdf"`` maps ``depth`` onto the TSDF grid depth
+    (clamped to 5–9), trims the lowest-weight ``quantile_trim`` of the
+    triangles, bounds the brick pool by ``tsdf_max_bricks`` (overflow
+    degrades to holes, logged) and ignores ``cg_x0``.
     ``timing``, when given, receives wall seconds per stage, each measured
     with a device synchronize: ``normals_s``, then ``setup_s``,
     ``coarse_s``, ``fine_cg_s``, ``iso_s`` (sparse) or ``solve_s``
@@ -124,17 +137,16 @@ def mesh_from_cloud(
         raise ValueError(f"unknown mesh mode {mode!r}")
     if extraction not in ("auto", "host", "device"):
         raise ValueError(f"unknown extraction engine {extraction!r}")
-    if representation not in ("poisson", "tsdf", "archival"):
+    if representation == "archival":
+        # The streaming session's watertight final format: by the time a
+        # cloud reaches this function, archival IS the Poisson print path.
+        representation = "poisson"
+    if representation not in ("poisson", "tsdf"):
         raise ValueError(f"unknown representation {representation!r} "
                          "(expected 'poisson', 'tsdf' or 'archival')")
-    if representation != "poisson":
-        raise _not_ported(f"representation={representation!r}",
-                          "step 5 (streaming and TSDF)")
     if mode == "surface":
         raise _not_ported("mode='surface' (native ball pivoting)",
                           "step 9 (deep-mesh and surface options)")
-    if cg_x0 is not None:
-        raise _not_ported("the cg_x0 warm start", "step 5 (streaming)")
     if device_mesh is not None:
         raise _not_ported("the device_mesh sharded solve",
                           "step 8 (devices and serving)")
@@ -151,8 +163,20 @@ def mesh_from_cloud(
     t1 = clock()
     if timing is not None:
         timing["normals_s"] = t1 - t0
+    if representation == "tsdf":
+        mesh = _tsdf_mesh(cloud, pts, normals, depth, quantile_trim,
+                          tsdf_max_bricks, dev)
+        if timing is not None:
+            timing["extract_s"] = clock() - t1
+        log.info("TSDF-meshed %d points -> %d verts / %d faces (depth=%d, "
+                 "colored=%s)", pts.shape[0], len(mesh.vertices),
+                 len(mesh.faces), depth, mesh.vertex_colors is not None)
+        return mesh
     if int(depth) > 8:
         kw = {} if max_blocks is None else {"max_blocks": int(max_blocks)}
+        if isinstance(cg_x0, (poisson.PoissonGrid,
+                              poisson_sparse.SparsePoissonGrid)):
+            kw["x0"] = cg_x0
         grid, n_blocks, stats = poisson_sparse.reconstruct_sparse(
             pts_t, nrm_t, depth=int(depth), cg_iters=cg_iters,
             preconditioner=preconditioner, with_stats=True, timing=timing,
@@ -167,7 +191,7 @@ def mesh_from_cloud(
                                        engine=extraction)
     else:
         grid = poisson.reconstruct(pts_t, nrm_t, depth=int(depth),
-                                   cg_iters=cg_iters)
+                                   cg_iters=cg_iters, x0=cg_x0)
         t2 = clock()
         if timing is not None:
             timing["solve_s"] = t2 - t1
@@ -182,9 +206,47 @@ def mesh_from_cloud(
 
 def mesh_from_cloud_async(cloud: PointCloud, *, task_name: str = "mesh",
                           **kw):
-    """The overlapped-finalize worker of the JAX package; not ported."""
-    raise _not_ported("mesh_from_cloud_async (utils/overlap.py)",
-                      "step 5 (streaming)")
+    """Launch :func:`mesh_from_cloud` on a pipelined worker and return its
+    :class:`..utils.overlap.PipelinedTask`; ``task.result()`` joins. The
+    worker runs the same call with the same arguments as the sequential
+    path, on the caller's device and CUDA stream. The caller must not
+    mutate ``cloud`` until the join; a worker exception re-raises at
+    ``result()``."""
+    from ..utils.overlap import PipelinedTask
+
+    return PipelinedTask(mesh_from_cloud, cloud, name=task_name, **kw)
+
+
+def _tsdf_mesh(cloud: PointCloud, pts: np.ndarray, normals: np.ndarray,
+               depth: int, quantile_trim: float, max_bricks: int,
+               dev: torch.device) -> TriangleMesh:
+    """Oriented cloud → fused TSDF (inward = −n̂) → vertex-coloured mesh.
+    The point count is padded to a power of two with invalid rows, as the
+    JAX package does."""
+    from ..fusion import TSDFParams, TSDFVolume
+    from ..ops.marching_device import _bucket
+
+    params = TSDFParams(grid_depth=min(max(int(depth), 5), 9),
+                        max_bricks=int(max_bricks))
+    n = pts.shape[0]
+    pad = _bucket(n) - n
+    has_colors = cloud.colors is not None and len(cloud.colors) == n
+    cols = np.asarray(cloud.colors, np.float32) if has_colors \
+        else np.zeros((n, 3), np.float32)
+    pts_p = np.concatenate([pts, np.zeros((pad, 3), np.float32)])
+    cols_p = np.concatenate([cols, np.zeros((pad, 3), np.float32)])
+    nrm_p = np.concatenate([np.asarray(normals, np.float32),
+                            np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32),
+                                    (pad, 1))])
+    val_p = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+    vol = TSDFVolume.from_bounds(params, pts.min(axis=0), pts.max(axis=0),
+                                 device=dev)
+    vol.integrate_oriented(pts_p, cols_p, val_p, nrm_p)
+    if vol.n_dropped:
+        log.warning("TSDF mesh dropped %d brick(s) past max_bricks=%d — "
+                    "raise tsdf_max_bricks or lower depth if the surface "
+                    "shows holes", vol.n_dropped, int(max_bricks))
+    return vol.extract(quantile_trim=quantile_trim, with_colors=has_colors)
 
 
 def reconstruct_stl(

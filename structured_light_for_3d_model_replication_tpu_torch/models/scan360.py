@@ -1,15 +1,17 @@
 """The flagship end-to-end workflow: 360° capture stacks → merged cloud
-(counterpart of the JAX ``models/scan360.py``, sequential method, "loop"
-ring strategy).
+(counterpart of the JAX ``models/scan360.py``, sequential and pose-graph
+methods, "loop" ring strategy), and the per-stop halves a streaming session
+runs (:func:`decode_stop`, :func:`subsample_stop`, :func:`stop_view_sizes`).
 
 1. decode + triangulate every stop, ``stop_chunk`` stops per call (host
    stacks are staged to the device one chunk at a time);
 2. one stratified subsample per stop feeding both the merge view
    (``view_cap`` slots) and the registration view (``max_points``);
-3. ring registration — FPFH + feature RANSAC + point-to-plane ICP per edge,
-   then the turntable-axis prior pass;
-4. every stop's merge view transformed by its chained pose and merged
-   through the final voxel → SOR → normals cleanup.
+3. ring registration — FPFH + feature RANSAC + point-to-plane ICP per edge
+   (plus the loop-closure edge 0 → N−1 under ``method="posegraph"``), then
+   the turntable-axis prior pass; chained poses, or the pose-graph LM;
+4. every stop's merge view transformed by its pose and merged through the
+   final voxel → SOR → normals cleanup.
 """
 
 from __future__ import annotations
@@ -83,11 +85,13 @@ def _subsample_views_body(view_cap: int, m_reg: int, pts, cols, vals):
     return sub_pts, sub_col, sub_val, reg_pts, reg_val
 
 
-def _edge_stats(fit, rmse) -> dict:
-    """Per-edge registration-quality telemetry (edge i maps stop i+1 → i)."""
-    edges = [{"src": i + 1, "dst": i, "fitness": round(float(f), 4),
-              "rmse": round(float(r), 4)} for i, (f, r) in
-             enumerate(zip(fit, rmse))]
+def _edge_stats(n: int, fit, rmse) -> dict:
+    """Per-edge registration-quality telemetry (edge i maps stop i+1 → i;
+    the loop edge 0 → N−1, when present, last)."""
+    edges = [{"src": i + 1 if i < n - 1 else 0,
+              "dst": i if i < n - 1 else n - 1,
+              "fitness": round(float(f), 4), "rmse": round(float(r), 4)}
+             for i, (f, r) in enumerate(zip(fit, rmse))]
     fits = [e["fitness"] for e in edges]
     return {"edges": edges,
             "min_fitness": min(fits) if fits else None,
@@ -107,14 +111,17 @@ def scan_stacks_to_cloud(stacks, calib: Calibration, col_bits: int,
     ``stacks`` may be a host ``np.ndarray`` (chunks are then staged to the
     device one at a time — a 24-stop 1080p session is 2.3 GB of uint8 that
     never needs to be resident at once) or a tensor. Stops are in turntable
-    order. ``seed`` seeds the RANSAC generator. ``with_stats`` appends a
-    dict of per-edge fitness/rmse. ``timing``, when given, receives the
+    order. ``seed`` seeds the per-edge RANSAC generators
+    (:func:`..models.merge.edge_generator`). ``params.method`` is
+    ``"sequential"`` (chained poses) or ``"posegraph"`` (plus the loop edge
+    when ``merge.loop_closure``, then the pose-graph LM). ``with_stats``
+    appends a dict of per-edge fitness/rmse. ``timing``, when given, receives the
     wall seconds of each stage (``decode_triangulate_s``, ``subsample_s``,
     ``register_s``, ``merge_s``), measured with a device synchronize at
     every stage edge; without it no stage edge synchronizes."""
-    if params.method != "sequential":
-        raise ValueError(f"method must be 'sequential' (the pose-graph "
-                         f"method is not ported yet), got {params.method!r}")
+    if params.method not in ("sequential", "posegraph"):
+        raise ValueError(f"method must be 'sequential' or 'posegraph', "
+                         f"got {params.method!r}")
     dev = resolve_device(device)
     if calib.Nc.device != dev:
         calib = calib.to(dev)
@@ -145,20 +152,23 @@ def scan_stacks_to_cloud(stacks, calib: Calibration, col_bits: int,
 
     # 2. One stratified pass per stop feeds both the registration view and
     # the merge reduce.
-    p_count = pts.shape[1]
-    m_reg = min(merge_mod._round_up(mp.max_points), p_count)
-    view_cap = merge_mod._round_up(min(params.view_cap, p_count))
+    view_cap, m_reg = stop_view_sizes(params, pts.shape[1])
     sub_pts, sub_col, sub_val, reg_pts, reg_val = _subsample_views_body(
         view_cap, m_reg, pts, cols, vals)
     del pts, cols, vals
     t2 = clock()
 
     # 3. Ring registration → per-stop poses.
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    Ts, _, fit, rmse = merge_mod.register_sequence(reg_pts, reg_val, mp,
-                                                   generator=gen)
-    poses = posegraph.chain_poses(Ts)
+    loop = params.method == "posegraph" and mp.loop_closure
+    Ts, infos, fit, rmse = merge_mod.register_sequence(
+        reg_pts, reg_val, mp, seed=seed, loop_closure=loop)
+    if params.method == "posegraph":
+        graph = posegraph.build_360_graph(
+            Ts[:n - 1], infos[:n - 1], Ts[n - 1] if loop else None,
+            infos[n - 1] if loop else None)
+        poses = posegraph.optimize(graph, iterations=mp.posegraph_iterations)
+    else:
+        poses = posegraph.chain_poses(Ts)
     t3 = clock()
 
     # 4. Merge under the poses: the per-stop subsample is already gathered,
@@ -172,8 +182,63 @@ def scan_stacks_to_cloud(stacks, calib: Calibration, col_bits: int,
         timing.update(decode_triangulate_s=t1 - t0, subsample_s=t2 - t1,
                       register_s=t3 - t2, merge_s=t4 - t3, stops=n,
                       chunk=chunk)
-    log.info("scan_stacks_to_cloud: %d stops → %d points", n, len(merged))
+    log.info("scan_stacks_to_cloud: %d stops → %d points (%s)", n,
+             len(merged), params.method)
     poses_np = poses.cpu().numpy()
     if with_stats:
-        return merged, poses_np, _edge_stats(fit, rmse)
+        return merged, poses_np, _edge_stats(n, fit, rmse)
     return merged, poses_np
+
+
+def scan_stream_to_cloud(*args, **kwargs):
+    """The JAX package's batch-API wrapper over a streaming session (and its
+    gated batch tail); not ported yet."""
+    from ..ops.poisson_sparse import _not_ported
+
+    raise _not_ported("scan360.scan_stream_to_cloud",
+                      "step 5's remainder (the gated batch tail)")
+
+
+def _ring_span(labels: list[int], step_deg: float | None) -> int:
+    """Total commanded steps of the full ring, for the loop edge's
+    wrap-around gap: 360/step when the step is known, else
+    ``max(labels) + 1``."""
+    if step_deg:
+        return max(int(round(360.0 / abs(step_deg))), max(labels) + 1)
+    return max(labels) + 1
+
+
+def decode_stop(stack, calib: Calibration, col_bits: int, row_bits: int,
+                decode_cfg: DecodeConfig = DecodeConfig(),
+                tri_cfg: TriangulationConfig = TriangulationConfig()):
+    """ONE stop decoded and triangulated through the batch path at B = 1,
+    on the calibration's device: the per-stop half of a streaming session.
+    ``stack`` is (F, H, W) uint8, host array or tensor. Returns ``(points
+    (P, 3) float32, colors (P, 3), valid (P,))`` tensors."""
+    if stack.ndim != 3:
+        raise ValueError(f"stack must be (frames, H, W), got shape "
+                         f"{tuple(stack.shape)}")
+    part = torch.from_numpy(np.ascontiguousarray(stack[None])) \
+        if isinstance(stack, np.ndarray) else stack[None]
+    r = pipeline_mod.reconstruct_batch(part, calib, col_bits, row_bits,
+                                       decode_cfg, tri_cfg,
+                                       device=calib.Nc.device)
+    return r.points[0], r.colors[0], r.valid[0]
+
+
+def subsample_stop(points, colors, valid, view_cap: int, m_reg: int):
+    """One stop's merge and registration views through the batch path's
+    subsample (a stop axis of 1). ``view_cap``/``m_reg`` come from
+    :func:`stop_view_sizes`. Returns ``(sub_pts, sub_col, sub_val, reg_pts,
+    reg_val)``."""
+    out = _subsample_views_body(view_cap, m_reg, points[None], colors[None],
+                                valid[None])
+    return tuple(a[0] for a in out)
+
+
+def stop_view_sizes(params: Scan360Params, n_pixels: int):
+    """The (view_cap, m_reg) the batch path derives for ``n_pixels``-pixel
+    stops, so streaming sessions subsample identically."""
+    m_reg = min(merge_mod._round_up(params.merge.max_points), n_pixels)
+    view_cap = merge_mod._round_up(min(params.view_cap, n_pixels))
+    return view_cap, m_reg

@@ -9,11 +9,13 @@
    Neumann boundaries, W the normalised splat-density screen);
 4. the iso level as the density-weighted mean of χ at the samples.
 
-It serves ``mesh_from_cloud`` at depth ≤ 8 and is the coarse solve inside
-the band-sparse one (:mod:`.poisson_sparse`). No kernel: every step is a
-handful of PyTorch operations on the grid. The CG stops on the JAX
-package's rule (``rs > rtol²·‖b‖²`` and the iteration cap), read on the host
-once per iteration, so the iteration count matches.
+It serves ``mesh_from_cloud`` at depth ≤ 8, the streaming session's coarse
+previews, and is the coarse solve inside the band-sparse one
+(:mod:`.poisson_sparse`). No kernel: every step is a handful of PyTorch
+operations on the grid. The CG stops on the JAX package's rule
+(``rs > rtol²·‖b‖²`` and the iteration cap), read on the host once per
+iteration, so the iteration count matches. ``x0`` warm-starts the CG from a
+previous χ grid at the solve resolution.
 """
 
 from __future__ import annotations
@@ -135,9 +137,9 @@ def screen_weights(density: torch.Tensor, screen) -> torch.Tensor:
 
 
 def _solve(points, normals, valid, resolution: int, cg_iters: int,
-           screen: float, rtol: float = 3e-4):
-    """Splat, divergence, Jacobi-PCG from a cold start, iso. Returns
-    (PoissonGrid, iterations used)."""
+           screen: float, rtol: float = 3e-4, x0=None):
+    """Splat, divergence, Jacobi-PCG from ``x0`` (None = a cold start from
+    zeros), iso. Returns (PoissonGrid, iterations used)."""
     R = resolution
     dev = points.device
     grid_pts, origin, scale = normalize_points(points, valid, R)
@@ -153,7 +155,8 @@ def _solve(points, normals, valid, resolution: int, cg_iters: int,
         return -(laplacian(x) - W * x)
 
     b = -rhs
-    x = torch.zeros((R, R, R), dtype=torch.float32, device=dev)
+    x = torch.zeros((R, R, R), dtype=torch.float32, device=dev) \
+        if x0 is None else x0.to(device=dev, dtype=torch.float32)
     dinv = 1.0 / (6.0 + W)
     r = b - matvec(x)
     p = dinv * r
@@ -187,20 +190,23 @@ def reconstruct(points: torch.Tensor, normals: torch.Tensor,
     """Screened-Poisson solve on a 2^depth dense grid, on the device the
     points lie on. ``depth`` > 8 is rejected (the band-sparse solver covers
     it). ``cg_iters`` caps the PCG; the residual stop (``rtol``) usually
-    ends it sooner. ``return_iters`` also returns the iteration count."""
+    ends it sooner. ``x0`` warm-starts the CG from a previous solve's χ
+    grid (R, R, R) — the streaming previewer threads its last preview
+    through, and the residual stop then fires after far fewer iterations.
+    ``return_iters`` also returns the iteration count."""
     if depth > 8:
         raise ValueError(
             f"depth={depth} > 8: dense-grid Poisson is capped at 256³ "
             "(the reference similarly guards depth > 16)")
-    if x0 is not None:
-        raise NotImplementedError(
-            "the x0 warm start is not ported yet: it comes with the "
-            "streaming slice (ROADMAP Queue 1 step 5)")
+    R = 2 ** depth
+    if x0 is not None and tuple(getattr(x0, "shape", ())) != (R, R, R):
+        raise ValueError(f"x0 shape {tuple(getattr(x0, 'shape', ()))} does "
+                         f"not match the depth-{depth} grid ({R}³)")
     points = points.to(torch.float32)
     normals = normals.to(torch.float32)
     if valid is None:
         valid = torch.ones(points.shape[0], dtype=torch.bool,
                            device=points.device)
-    grid, iters = _solve(points, normals, valid, 2 ** depth, cg_iters,
-                         screen, rtol)
+    grid, iters = _solve(points, normals, valid, R, cg_iters, screen, rtol,
+                         x0=x0)
     return (grid, iters) if return_iters else grid

@@ -21,10 +21,13 @@ prolongation of :func:`_prolong_band`, with the flexible (Polak-Ribière)
 beta; ``"jacobi"`` is the oracle. Both stop on the JAX package's rule,
 read on the host once per iteration, so the iteration counts match.
 
+``x0`` warm-starts the solve from a previous grid: a dense preview grid
+seeds the internal coarse solve (resampled world-aligned), a previous
+band-sparse grid seeds the matching band blocks (:func:`_warm_start_seed`).
+
 Not ported yet, each raising an error that names where it comes: the
 wide-key path (depth 14-16), the ``"vcycle"`` and ``"chebyshev"``
-preconditioners and ``fine_dtype="bfloat16"`` (ROADMAP Queue 1 step 9),
-and the ``x0`` warm starts (step 5, streaming).
+preconditioners and ``fine_dtype="bfloat16"`` (ROADMAP Queue 1 step 9).
 """
 
 from __future__ import annotations
@@ -595,6 +598,110 @@ def _iso_sparse(chi, density, flat, w, cfound, valid):
     return (chi_pts * den_pts).sum() / den_pts.sum().clamp_min(1e-12)
 
 
+def _resample_chi_to_coarse(prev: dense_poisson.PoissonGrid, points, valid,
+                            rc: int, slabs: int = 16) -> torch.Tensor:
+    """Trilinear resample of a DENSE preview χ grid onto this solve's
+    internal coarse frame (world-aligned through each grid's own origin and
+    scale); zero outside the preview's domain. ``slabs`` x-planes at a
+    time, so the 256³ coarse case never holds the whole gather."""
+    dev = points.device
+    prev_chi = prev.chi.to(device=dev, dtype=torch.float32)
+    prev_origin = prev.origin.to(device=dev, dtype=torch.float32)
+    prev_scale = prev.scale.to(device=dev, dtype=torch.float32)
+    rp = prev_chi.shape[0]
+    _, origin_c, scale_c = dense_poisson.normalize_points(points, valid, rc)
+    v = torch.arange(rc, dtype=torch.float32, device=dev)
+    Y, Z = torch.meshgrid(v, v, indexing="ij")
+    zero = torch.zeros((), device=dev)
+    out = torch.empty((rc, rc, rc), dtype=torch.float32, device=dev)
+    for x0 in range(0, rc, slabs):
+        xs = v[x0:x0 + slabs]
+        k = xs.shape[0]
+        grid = torch.stack([xs[:, None, None].expand(k, rc, rc),
+                            Y.expand(k, rc, rc), Z.expand(k, rc, rc)], -1)
+        world = origin_c + grid * scale_c
+        q = (world - prev_origin) / prev_scale
+        inside = ((q >= 0.0) & (q <= rp - 1.0)).all(-1)
+        qc = torch.floor(q).to(torch.int64).clamp(0, rp - 2)
+        f = (q - qc.to(torch.float32)).clamp(0.0, 1.0)
+
+        def g(dx, dy, dz):
+            return prev_chi[qc[..., 0] + dx, qc[..., 1] + dy,
+                            qc[..., 2] + dz]
+
+        fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+        c00 = g(0, 0, 0) * (1 - fz) + g(0, 0, 1) * fz
+        c01 = g(0, 1, 0) * (1 - fz) + g(0, 1, 1) * fz
+        c10 = g(1, 0, 0) * (1 - fz) + g(1, 0, 1) * fz
+        c11 = g(1, 1, 0) * (1 - fz) + g(1, 1, 1) * fz
+        c0 = c00 * (1 - fy) + c01 * fy
+        c1 = c10 * (1 - fy) + c11 * fy
+        out[x0:x0 + k] = torch.where(inside, c0 * (1 - fx) + c1 * fx, zero)
+    return out
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _dense_cover_blocks(block_coords, block_valid, origin, scale,
+                        prev: dense_poisson.PoissonGrid) -> int:
+    """How many active band blocks the dense preview grid covers (the
+    ``warm_start_blocks`` count of the dense-``x0`` path)."""
+    bc = _host(block_coords)[_host(block_valid)]
+    if bc.shape[0] == 0:
+        return 0
+    center = bc.astype(np.float64) * BS + 0.5 * BS
+    world = _host(origin).astype(np.float64) + center * float(scale)
+    q = (world - _host(prev.origin).astype(np.float64)) / float(prev.scale)
+    rp = prev.chi.shape[0]
+    return int(np.all((q >= 0.0) & (q <= rp - 1.0), axis=-1).sum())
+
+
+def _warm_start_seed(seed: torch.Tensor, prev: SparsePoissonGrid,
+                     block_coords, block_valid, origin, scale,
+                     resolution: int):
+    """Overlay a previous band solve's χ onto the new band's CG seed: blocks
+    present in both bands (matched by block coordinate, valid only when the
+    grid normalization did not move) start from the previous χ. Returns
+    ``(seed, matched_block_count)``; 0 means skipped."""
+    if prev.resolution != resolution:
+        log.info("sparse warm start skipped: previous grid resolution %d "
+                 "!= %d", prev.resolution, resolution)
+        return seed, 0
+    prev_origin = _host(prev.origin).astype(np.float64)
+    new_origin = _host(origin).astype(np.float64)
+    prev_scale, new_scale = float(prev.scale), float(scale)
+    tol = 1e-5 * max(abs(prev_scale), abs(new_scale))
+    if abs(prev_scale - new_scale) > tol or not np.allclose(
+            prev_origin, new_origin, rtol=0.0, atol=tol * BS):
+        log.info("sparse warm start skipped: grid normalization moved")
+        return seed, 0
+    pi = np.nonzero(_host(prev.block_valid))[0]
+    ni = np.nonzero(_host(block_valid))[0]
+    if pi.size == 0 or ni.size == 0:
+        return seed, 0
+    bits = 21
+
+    def pack(bc):
+        bc = bc.astype(np.int64)
+        return (bc[:, 0] << (2 * bits)) | (bc[:, 1] << bits) | bc[:, 2]
+
+    pk = pack(_host(prev.block_coords)[pi])
+    nk = pack(_host(block_coords)[ni])
+    order = np.argsort(pk)
+    pos = np.minimum(np.searchsorted(pk, nk, sorter=order), pk.size - 1)
+    hit = pk[order[pos]] == nk
+    if not hit.any():
+        return seed, 0
+    dev = seed.device
+    dst = torch.from_numpy(ni[hit]).to(dev)
+    src = torch.from_numpy(pi[order[pos[hit]]]).to(dev)
+    seed = seed.clone()
+    seed[dst] = prev.chi.to(device=dev, dtype=torch.float32)[src]
+    return seed, int(hit.sum())
+
+
 def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
                        valid: torch.Tensor | None = None,
                        depth: int | None = None,
@@ -659,8 +766,12 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
     if 2 ** depth < 4 * BS:
         raise ValueError(f"depth={depth} too shallow for the block solver; "
                          "use ops.poisson.reconstruct")
-    if x0 is not None:
-        raise _not_ported("the x0 warm start", "step 5 (streaming)")
+    if x0 is not None and not isinstance(
+            x0, (SparsePoissonGrid, dense_poisson.PoissonGrid)):
+        raise TypeError(
+            f"x0 must be a SparsePoissonGrid from a previous "
+            f"reconstruct_sparse call (or a dense poisson.PoissonGrid "
+            f"preview), got {type(x0).__name__}")
     if coarse_depth is None:
         coarse_depth = min(8, max(7, depth - 7))
     points = points.to(torch.float32)
@@ -691,11 +802,26 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
     t1 = clock()
 
     rc = 2 ** min(coarse_depth, depth)
+    dense_x0 = x0 if isinstance(x0, dense_poisson.PoissonGrid) else None
     coarse, coarse_used = dense_poisson._solve(
-        points, normals, valid, rc, coarse_iters, screen, rtol)
+        points, normals, valid, rc, coarse_iters, screen, rtol,
+        x0=None if dense_x0 is None else _resample_chi_to_coarse(
+            dense_x0, points, valid, rc))
     b, seed = _prolong_band(coarse.chi, rhs, nbr, block_valid, block_coords,
                             2 ** depth, rc)
     del rhs
+    warm_blocks = 0
+    if dense_x0 is not None:
+        warm_blocks = _dense_cover_blocks(block_coords, block_valid, origin,
+                                          scale, dense_x0)
+        log.info("sparse Poisson depth=%d: dense preview grid warm-started "
+                 "the %d^3 coarse solve (%d/%d iterations, %d band blocks "
+                 "covered)", depth, rc, coarse_used, coarse_iters,
+                 warm_blocks)
+    elif x0 is not None:
+        seed, warm_blocks = _warm_start_seed(seed, x0, block_coords,
+                                             block_valid, origin, scale,
+                                             2 ** depth)
     t2 = clock()
     if preconditioner == "jacobi":
         chi, cg_used = _cg_sparse(b, W, seed, nbr, block_valid, cg_iters,
@@ -721,7 +847,7 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
                                "coarse_iters_used": coarse_used,
                                "preconditioner": preconditioner,
                                "fine_dtype": params.fine_dtype,
-                               "warm_start_blocks": 0}
+                               "warm_start_blocks": warm_blocks}
     return grid, nb_host
 
 

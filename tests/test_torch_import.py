@@ -6,6 +6,7 @@ The import checks run in a fresh interpreter (a subprocess): this test
 process already holds jax, imported by tests/conftest.py.
 """
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -62,8 +63,10 @@ def test_every_port_module_imports_without_jax():
 def test_entry_modules_do_not_load_kernel_bindings():
     _run(f"""
         import sys
-        from {PORT}.models import scan360, pipeline, synthetic
-        from {PORT}.ops import decode, nn, registration
+        from {PORT}.models import scan360, pipeline, synthetic, meshing
+        from {PORT}.ops import decode, nn, registration, tsdf
+        from {PORT} import fusion, stream
+        from {PORT}.stream import session
         loaded = [m for m in sys.modules if m.startswith("{PORT}.kernels")
                   or m == "triton"]
         assert not loaded, loaded
@@ -92,3 +95,48 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     # The same calls run when the caller asks for the CPU.
     res = pipeline.reconstruct(stack, calib, 3, 2, device="cpu")
     assert res.points.shape == (16, 3) and res.points.device.type == "cpu"
+
+
+def test_slice_entry_points_raise_without_cuda(monkeypatch):
+    """The mesh and streaming entry points: ``device=None`` raises without a
+    card; ``device="cpu"`` runs."""
+    from structured_light_for_3d_model_replication_tpu_torch.fusion import (
+        TSDFParams,
+        TSDFVolume,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    u = rng.normal(size=(400, 3)).astype(np.float32)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+
+    def cloud():
+        return PointCloud(points=u * 10.0, normals=u.copy())
+
+    eye = np.eye(3)
+    calib = make_calibration(eye, eye, eye, np.zeros(3), 4, 4, 8, 8,
+                             device="cpu")
+    params = TSDFParams(grid_depth=5, max_bricks=64)
+    for call in (lambda: meshing.mesh_from_cloud(cloud(), depth=5),
+                 lambda: meshing.mesh_360(cloud(), os.devnull, depth=5),
+                 lambda: TSDFVolume(params, np.zeros(3), 1.0),
+                 lambda: IncrementalSession(calib, 3, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    mesh = meshing.mesh_from_cloud(cloud(), depth=5, device="cpu")
+    assert len(mesh.faces) > 0
+    assert len(meshing.mesh_360(cloud(), os.devnull, depth=5,
+                                device="cpu").faces) > 0
+    vol = TSDFVolume(params, np.full(3, -12.0), 0.75, device="cpu")
+    assert vol.state.tsdf.device.type == "cpu"
+    sess = IncrementalSession(calib, 3, 2, device="cpu")
+    assert sess.device.type == "cpu" and sess.stops_fused == 0

@@ -226,9 +226,9 @@ def test_dense_depth_meshes_on_the_dense_solve():
 
 @pytest.mark.parametrize("kw,what", [
     (dict(mode="surface"), "mode='surface'"),
-    (dict(representation="tsdf"), "representation='tsdf'"),
-    (dict(representation="archival"), "representation='archival'"),
-    (dict(cg_x0=object()), "cg_x0"),
+    (dict(mode="surface", representation="tsdf"), "mode='surface'"),
+    (dict(depth=14), "wide-key path"),
+    (dict(depth=9, preconditioner="chebyshev"), "'chebyshev'"),
     (dict(device_mesh=object()), "device_mesh"),
     (dict(depth=9, preconditioner="vcycle"), "'vcycle'"),
 ])
@@ -238,8 +238,11 @@ def test_left_out_modes_name_their_step(kw, what):
         meshing.mesh_from_cloud(ply.PointCloud(points=pts, normals=nrm),
                                 device="cpu", **kw)
     assert what in str(exc.value) and "step" in str(exc.value)
-    with pytest.raises(NotImplementedError, match="step 5"):
-        meshing.mesh_from_cloud_async(ply.PointCloud(points=pts))
+    # The pipelined worker carries the same error to its join.
+    task = meshing.mesh_from_cloud_async(
+        ply.PointCloud(points=pts, normals=nrm), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        task.result(timeout=60)
     with pytest.raises(ValueError, match="representation"):
         meshing.mesh_from_cloud(ply.PointCloud(points=pts),
                                 representation="voxels", device="cpu")

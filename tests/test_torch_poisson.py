@@ -120,6 +120,6 @@ def test_reconstruct_rejects_deep_and_warm_start():
     pts, nrm = (torch.tensor(a) for a in _sphere(100, 6))
     with pytest.raises(ValueError, match="depth=9 > 8"):
         poisson.reconstruct(pts, nrm, depth=9)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="does not match"):
         poisson.reconstruct(pts, nrm, depth=4,
-                            x0=torch.zeros((16, 16, 16)))
+                            x0=torch.zeros((8, 8, 8)))

@@ -208,7 +208,7 @@ def test_budget_overflow_rebuilds_the_band():
     (dict(preconditioner="vcycle"), "'vcycle' preconditioner"),
     (dict(preconditioner="chebyshev"), "'chebyshev' preconditioner"),
     (dict(depth=14), "wide-key path"),
-    (dict(x0=object()), "x0 warm start"),
+    (dict(depth=16), "wide-key path"),
 ])
 def test_left_out_options_name_their_step(kw, what):
     pts, nrm = (torch.tensor(a) for a in _sphere(200, 2))

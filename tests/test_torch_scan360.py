@@ -121,4 +121,4 @@ def test_scan_stacks_rejects_unported_method(synth_rig, stacks):
     with pytest.raises(ValueError, match="method"):
         scan360.scan_stacks_to_cloud(
             stacks, cal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
-            params=scan360.Scan360Params(method="posegraph"), device="cpu")
+            params=scan360.Scan360Params(method="fused"), device="cpu")
