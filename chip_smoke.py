@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port on one NVIDIA GPU:
 ``structured_light_for_3d_model_replication_tpu_torch``, from stacks to the
-merged 360° cloud and on to the printable STL, and through the streaming
-session, with its CUDA kernels.
+merged 360° cloud and on to the printable STL, through the streaming
+session, and through the cleanup path of a single capture, with its CUDA
+kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
@@ -36,11 +37,19 @@ Phases, in order; any failure exits non-zero before the result line:
    skips on this ring; session P runs the pose graph (loop edge, LM)
    with the gate off. Then ``mesh_from_cloud(representation="tsdf")`` of
    session T's cloud twice in sequence and once through
-   ``mesh_from_cloud_async``, compared bit for bit;
-6. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, and
-   a 4-stop TSDF session, on the card and on the host (the plain versions),
+   ``mesh_from_cloud_async``, compared bit for bit. The 360°, mesh and
+   streaming paths must not launch the brick KNN kernel: their clouds stay
+   below its 131,072 points;
+6. the cleanup path of the reference's Process tab on one 1080×1920 stop
+   of the bump scene with the rig's wall at z = 700: reconstruct → PLY
+   written and read back → ``remove_background`` → ``remove_outliers`` →
+   ``reconstruct_stl`` at depth 10, with the brick KNN kernel launched by
+   the outlier removal and by the normals of the cleaned cloud;
+7. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, a
+   4-stop TSDF session, the ring with the brick FPFH and the cleanup path
+   of one walled stop, on the card and on the host (the plain versions),
    compared by outcome;
-7. a ``kernels`` JSON line, the card line again, and last the result line
+8. a ``kernels`` JSON line, the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -64,6 +73,7 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # non-tensor fp32, H100 SXM data sheet
 NN_FLOPS_PER_PAIR = 8          # 3 sub, 3 mul, 2 add
 N_STOPS, STEP_DEG = 24, 15.0   # the headline ring (bench.py:337-380)
+BRICK_N = 1 << 20              # bench config 3b's cloud (bench.py:1135-1181)
 # What the JAX package's session decides on this ring with the covisibility
 # gate on (scripts/torch_gate_witness.py): the model test skips the last two
 # stops, whose views the fused ring already covers.
@@ -428,9 +438,243 @@ def check_combine(dev):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
+def cylinder_cloud(n: int, seed: int):
+    """The JAX bench's config 3 cloud (``bench.py:1088-1133``): a cylinder
+    of radius 80 mm, 160 mm tall, 500 mm from the camera, 0.5 mm noise,
+    from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n)
+    zz = rng.uniform(-80, 80, n)
+    cloud = np.stack([80 * np.cos(theta), zz, 80 * np.sin(theta) + 500],
+                     1).astype(np.float32)
+    cloud += rng.normal(0, 0.5, cloud.shape).astype(np.float32)
+    return cloud
+
+
+def brick_exact(dev, pts, val, k: int, excl: bool, label: str):
+    """``brick_knn_cells`` against its plain version on the kernel inputs
+    that ``brick_knn`` builds for ``pts`` (default cell scale and budget):
+    fails unless d² bits and ids are equal. Returns (max |kernel − plain|,
+    (bricks, nbr, nnb))."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel as bk,
+    )
+
+    bricks, nbr, nnb, _, n_drop = bk.kernel_inputs(pts, val, k, 140,
+                                                   len(pts) // 8 + 1024)
+    d, i = bk.brick_knn_cells(bricks, nbr, nnb, k, excl)
+    rd, ri = bk.brick_knn_cells_plain(bricks, nbr, nnb, k, excl)
+    torch.cuda.synchronize()
+    same_d = torch.equal(d.view(torch.int32), rd.view(torch.int32))
+    same_i = torch.equal(i, ri)
+    fin = torch.isfinite(rd)
+    err = float((d[fin] - rd[fin]).abs().max()) if bool(fin.any()) else 0.0
+    print(f"brick_knn_cells {label}: {bricks.shape[0]} occupied cells, "
+          f"{int(n_drop)} points dropped by slot overflow; max |kernel - "
+          f"plain| = {err:.3e}, d2 bits equal {same_d}, ids equal {same_i}",
+          flush=True)
+    if not (same_d and same_i):
+        fail(f"brick_knn_cells disagrees with its plain version ({label})")
+    return err, (bricks, nbr, nnb)
+
+
+def brute_knn(pts, val, k: int, excl: bool, rows):
+    """The k nearest valid points of each of ``rows``, by brute force over
+    direct differences (the matmul expansion cancels at the clouds' ~500 mm
+    offset and reorders near neighbours): (d² (R, k), ids (R, k)),
+    ascending."""
+    import torch
+
+    dev = pts.device
+    inf = torch.full((), float("inf"), device=dev)
+    ds, ids = [], []
+    for r0 in range(0, len(rows), 256):
+        rr = rows[r0:r0 + 256]
+        q = pts[rr]
+        dx, dy, dz = (q[:, j:j + 1] - pts[None, :, j] for j in range(3))
+        dd = torch.where(val[None], (dx * dx + dy * dy) + dz * dz, inf)
+        if excl:
+            dd[torch.arange(len(rr), device=dev), rr] = float("inf")
+        d, i = torch.topk(dd, k, dim=1, largest=False)
+        ds.append(d)
+        ids.append(i)
+    return torch.cat(ds), torch.cat(ids)
+
+
+def knn_recall(ref, idx, nbv) -> float:
+    """Share of the reference neighbour ids ``ref`` (R, k) that the
+    neighbour lists ``idx`` / ``nbv`` (R, k) hold."""
+    import torch
+
+    got = torch.where(nbv, idx, torch.full((), -1, device=idx.device))
+    hits = sum(float((got[r:r + 4096, :, None] == ref[r:r + 4096, None, :])
+                     .any(2).sum()) for r in range(0, len(ref), 4096))
+    return hits / ref.numel()
+
+
+def check_brick_knn(dev):
+    """``brick_knn_cells`` against its plain version on the same kernel
+    inputs (the kernel path's set-up, ``brickknn_kernel.kernel_inputs``):
+    at bench config 3b's shape (config 3's 2²⁰-point cylinder, k = 20,
+    ``exclude_self``) and at a ragged cloud (100,003 points, 10% invalid,
+    a 100-point clump that overflows its brick, k = 30, self included).
+    Exact: d² bit-equal, ids equal. Then, at the first shape, the kernel
+    timed beside its bound, the plain version and a library yardstick
+    (``torch.cdist`` in its default matmul mode + ``torch.topk``, two
+    calls, over the same gathered candidates); recall of ``brick_knn``
+    against brute force on 4,096 sampled rows, by direct differences (the
+    matmul expansion cancels at the cloud's 500 mm offset, ~0.03 mm² of
+    d², enough to reorder near neighbours); and the
+    ``brick_knn`` wall (set-up, kernel, gather, and the exact rescue pass,
+    as bench 3b runs it) beside ``morton_knn``'s."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn,
+        brickknn_kernel as bk,
+        mortonknn,
+    )
+
+    rng = np.random.default_rng(3)
+    ragged = cylinder_cloud(100_003, 1)
+    ragged[-100:] = ragged[0] + 1.0          # the overflow clump
+    ragged_valid = rng.random(len(ragged)) >= 0.1
+    ragged_valid[-100:] = True
+    cases = (("2^20-point cylinder (bench config 3), k=20, exclude_self",
+              cylinder_cloud(BRICK_N, 0), None, 20, True),
+             ("ragged 100,003 points, 10% invalid, clump, k=30, self "
+              "included", ragged, ragged_valid, 30, False))
+    main, max_err = None, 0.0
+    for label, cloud, valid, k, excl in cases:
+        pts = torch.from_numpy(cloud).to(dev)
+        val = (torch.ones(len(cloud), dtype=torch.bool, device=dev)
+               if valid is None else torch.from_numpy(valid).to(dev))
+        err, inputs = brick_exact(dev, pts, val, k, excl, label)
+        max_err = max(max_err, err)
+        if main is None:
+            main = (pts, val, *inputs, k, excl)
+    pts, val, bricks, nbr, nnb, k, excl = main
+    c = bricks.shape[0]
+    ms = cuda_ms(lambda: bk.brick_knn_cells(bricks, nbr, nnb, k, excl), 20)
+    plain_ms = cuda_ms(
+        lambda: bk.brick_knn_cells_plain(bricks, nbr, nnb, k, excl), 2, 1)
+    # Library yardstick over the same gathered candidates; absent neighbour
+    # bricks point at a far-away dummy brick so they never rank.
+    coords = bricks[..., :3].contiguous().view(torch.float32)
+    coords = torch.where(torch.isfinite(coords), coords,
+                         torch.full((), 1e6, device=dev))
+    far = torch.full((1, 32, 3), 1e6, device=dev)
+    slot = torch.arange(27, device=dev)
+    nb_lib = torch.where(slot[None] < nnb[:, None], nbr.long(),
+                         torch.full((), c, device=dev))
+    cand = torch.cat([coords, far])[nb_lib].reshape(c, 27 * 32, 3)
+    lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(coords, cand), k, dim=2,
+                                        largest=False), 5, 1)
+    del cand
+    # Bound, from what these inputs need: the live points once (16 B
+    # each), the table and the counts, a k-wide output row (d², id) for
+    # each live point; 8 fp32 operations for each pair of a live query and
+    # a live candidate in one of its cell's present neighbour bricks.
+    live = (bricks[..., 3] >= 0).sum(1)
+    present = slot[None] < nnb[:, None]
+    cand = torch.where(present, live[nbr.long().clamp(0, c - 1)],
+                       torch.zeros((), dtype=live.dtype, device=dev)).sum(1)
+    pairs = float((live.to(torch.float64) * cand.to(torch.float64)).sum())
+    n_live = int(live.sum())
+    flops = NN_FLOPS_PER_PAIR * pairs
+    nbytes = n_live * 16 + c * 27 * 4 + c * 4 + n_live * k * 8
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    print(f"brick_knn_cells {c} cells, {n_live} live points, k={k}: "
+          f"{ms:.4f} ms/launch, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{pairs / 1e6:.1f} M live pairs, {flops / 1e9:.3f} GFLOP -> "
+          f"{t_ops:.4f} ms; {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms), "
+          f"plain {plain_ms:.3f} ms, library torch.cdist + torch.topk (two "
+          f"calls) {lib_ms:.3f} ms", flush=True)
+
+    # Recall of the whole engine against brute force on 4,096 rows.
+    d, i, v = brickknn.brick_knn(pts, k, points_valid=val, exclude_self=excl)
+    rows = torch.from_numpy(np.sort(rng.choice(len(pts), 4096,
+                                               replace=False))).to(dev)
+    recall = knn_recall(brute_knn(pts, val, k, excl, rows)[1], i[rows],
+                        v[rows])
+    # Walls of the engines, each call ending in a synchronize.
+    walls = {}
+    for name, fn in (("brick_knn", lambda: brickknn.brick_knn(
+            pts, k, exclude_self=excl, rescue=True, return_dropped=True)),
+                     ("morton_knn", lambda: mortonknn.morton_knn(
+                         pts, k, exclude_self=excl))):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        walls[name] = best
+    n_left = brickknn.brick_knn(pts, k, exclude_self=excl, rescue=True,
+                                return_dropped=True)[3]
+    print(f"brick_knn at 2^20, k={k}: recall {recall:.5f} against brute force"
+          f" on 4096 rows; wall {walls['brick_knn'] * 1e3:.1f} ms (set-up + "
+          f"kernel + gather + rescue pass, {n_left} rows still dropped) vs "
+          f"morton_knn {walls['morton_knn'] * 1e3:.1f} ms: rescue_cost_ratio"
+          f" {walls['brick_knn'] / walls['morton_knn']:.3f}", flush=True)
+    if recall < 0.99:
+        fail(f"brick_knn recall {recall:.5f} < 0.99 at 2^20 points")
+    return dict(name="brick_knn_cells", route="cuda",
+                source="structured_light_for_3d_model_replication_tpu_torch/"
+                       "csrc/brick_knn.cu",
+                replaces="structured_light_for_3d_model_replication_tpu/ops/"
+                         "brickknn_pallas.py:380",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full size
 # ---------------------------------------------------------------------------
+
+
+def headline_scene(wall_z):
+    """The headline bump scene: a sphere of radius 80 mm on the turntable
+    axis with six bumps around it; ``wall_z`` the wall behind it (None: no
+    wall, the 360° ring's setting; 700: the rig's default)."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    def bump(az_deg, y, r):
+        az = np.radians(az_deg)
+        return synthetic.Sphere(
+            (90.0 * np.sin(az), y, 500.0 + 90.0 * np.cos(az)), r, 0.75)
+
+    return synthetic.Scene(wall_z=wall_z, spheres=(
+        synthetic.Sphere((0.0, 10.0, 500.0), 80.0, 0.9),
+        bump(0, -40, 32), bump(60, 30, 26), bump(130, -10, 30),
+        bump(200, 55, 24), bump(270, -55, 28), bump(320, 20, 22)))
+
+
+def render_stop(scene, rig, h: int, w: int, proj):
+    """One stop's (F, h, w) uint8 stack of ``scene``, frames shaded in
+    parallel on the host."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    frames = synthetic.pattern_frames(proj)
+    shader = synthetic.FrameShader(scene, *rig, h, w, proj)
+    stack = np.empty((frames.shape[0], h, w), np.uint8)
+
+    def shade(f):
+        stack[f] = shader.shade(frames[f])
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(shade, range(frames.shape[0])))
+    return stack
 
 
 def render_stacks(n_stops: int, step_deg: float, proj):
@@ -443,16 +687,7 @@ def render_stacks(n_stops: int, step_deg: float, proj):
 
     h, w = proj.height, proj.width
     rig = synthetic.default_calibration(h, w, proj)
-
-    def bump(az_deg, y, r):
-        az = np.radians(az_deg)
-        return synthetic.Sphere(
-            (90.0 * np.sin(az), y, 500.0 + 90.0 * np.cos(az)), r, 0.75)
-
-    scene = synthetic.Scene(wall_z=None, spheres=(
-        synthetic.Sphere((0.0, 10.0, 500.0), 80.0, 0.9),
-        bump(0, -40, 32), bump(60, 30, 26), bump(130, -10, 30),
-        bump(200, 55, 24), bump(270, -55, 28), bump(320, 20, 22)))
+    scene = headline_scene(None)
     frames = synthetic.pattern_frames(proj)
     stacks = np.empty((n_stops, frames.shape[0], h, w), np.uint8)
     gts = [None] * n_stops
@@ -530,6 +765,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
         scan360,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
         decode,
         nn,
     )
@@ -555,6 +791,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
         torch.cuda.reset_peak_memory_stats(dev)
     decode.decode_maps.launches = 0
     nn.nearest_one.launches = 0
+    brickknn_kernel.brick_knn_cells.launches = 0
     timing = {}
     t0 = time.perf_counter()
     merged, poses, stats = scan360.scan_stacks_to_cloud(
@@ -564,6 +801,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     wall = time.perf_counter() - t0
     launches = {"decode_maps": decode.decode_maps.launches,
                 "nearest_one": nn.nearest_one.launches}
+    brick = brickknn_kernel.brick_knn_cells.launches
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     print(f"main path: {n_stops} stops -> {len(merged)} points in "
@@ -571,7 +809,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
               f"{k}={v:.3f}" for k, v in timing.items()
               if k.endswith("_s")), flush=True)
     print(f"peak device memory {peak / 2**30:.2f} GiB; kernel launches "
-          f"{launches}", flush=True)
+          f"{dict(launches, brick_knn_cells=brick)}", flush=True)
     worst = 0.0
     for k in range(n_stops):
         R = poses[k][:3, :3].astype(np.float64)
@@ -596,6 +834,9 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     for name, count in launches.items():
         if count <= 0:
             fail(f"the main path never launched {name}")
+    if brick != 0:
+        fail(f"the 360° path launched brick_knn_cells {brick} times: its "
+             "clouds stay below the brick engine's 131,072 points")
 
     # Stop 0 triangulated against the rendered ground truth (the decode
     # rounds to the nearest projector column: ~1 pixel of depth).
@@ -646,6 +887,7 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         meshing,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
         marching_classify,
         poisson_matvec,
     )
@@ -659,6 +901,7 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         torch.cuda.reset_peak_memory_stats(dev)
     poisson_matvec.matvec_band.launches = 0
     marching_classify.classify_cells.launches = 0
+    brickknn_kernel.brick_knn_cells.launches = 0
     timing, stats = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "model.stl")
@@ -670,7 +913,9 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         wall = time.perf_counter() - t0
         launches = {"matvec_band": poisson_matvec.matvec_band.launches,
                     "classify_cells":
-                        marching_classify.classify_cells.launches}
+                        marching_classify.classify_cells.launches,
+                    "brick_knn_cells":
+                        brickknn_kernel.brick_knn_cells.launches}
         back = read_stl(path)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     print(f"mesh path: {len(merged)} points -> {len(mesh.vertices)} "
@@ -693,6 +938,9 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     if launches["classify_cells"] != 1:
         fail(f"classify_cells launched {launches['classify_cells']} times, "
              "not once")
+    if launches.pop("brick_knn_cells") != 0:
+        fail("the mesh path launched brick_knn_cells: its cloud carries "
+             "normals and stays below 131,072 points")
     if len(mesh.faces) <= 10_000:
         fail(f"the mesh has only {len(mesh.faces)} faces")
     if len(back.faces) != len(mesh.faces):
@@ -825,6 +1073,10 @@ def run_session(dev, ring, representation: str, counters):
     for name in ("decode_maps", "nearest_one"):
         if launches[name] <= 0:
             fail(f"session {representation} never launched {name}")
+    if launches["brick_knn_cells"] != 0:
+        fail(f"session {representation} launched brick_knn_cells "
+             f"{launches['brick_knn_cells']} times: its clouds stay below "
+             "131,072 points")
     return sess, fin, launches, skipped
 
 
@@ -849,12 +1101,16 @@ def stream_path(dev, ring):
         poisson_matvec,
         tsdf_combine,
     )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.brickknn_kernel import (
+        brick_knn_cells,
+    )
 
     counters = {"decode_maps": decode.decode_maps,
                 "nearest_one": nn.nearest_one,
                 "matvec_band": poisson_matvec.matvec_band,
                 "classify_cells": marching_classify.classify_cells,
-                "tsdf_combine": tsdf_combine.tsdf_combine}
+                "tsdf_combine": tsdf_combine.tsdf_combine,
+                "brick_knn_cells": brick_knn_cells}
     spheres = synthetic_spheres(ring["scene"])
 
     # Session T: the default lane at full width, the gate on.
@@ -944,6 +1200,270 @@ def stream_path(dev, ring):
              f" launches (want 1), tsdf_combine "
              f"{launches_p['tsdf_combine']} (want 0)")
     return launches_t
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the cleanup path on one capture-size stop with its wall
+# ---------------------------------------------------------------------------
+
+
+def _row_mask(points: np.ndarray, kept: np.ndarray) -> np.ndarray:
+    """Rows of ``points`` that survive, by exact coordinates, in ``kept``."""
+    view = np.dtype((np.void, 12))
+    return np.isin(np.ascontiguousarray(points, np.float32).view(view)
+                   .ravel(),
+                   np.ascontiguousarray(kept, np.float32).view(view).ravel())
+
+
+def cleanup_path(dev, proj=None, depth: int = 10) -> int:
+    """The reference's Process tab (``cli mesh --remove-background
+    --remove-outliers``) on one 1080×1920 stop of the headline bump scene
+    with the rig's default wall at z = 700: ``reconstruct`` →
+    ``to_point_cloud`` → PLY written and read back → ``remove_background``
+    → ``remove_outliers`` → ``reconstruct_stl(depth=10)`` into a temporary
+    STL, read back; the kernels' launch counters zeroed before and read
+    after. Both KNN sweeps of this path (the outlier removal's k = 20 and
+    the missing normals' k = 30) run at more than 131,072 points, so each
+    takes the brick kernel once. Returns its launch count."""
+    import tempfile
+
+    import torch
+    from scipy.spatial import cKDTree
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        read_ply,
+        write_ply,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        read_stl,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+        meshing,
+        pipeline,
+        synthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
+        marching_classify,
+        poisson_matvec,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    proj = proj or ProjectorConfig()
+    h, w = proj.height, proj.width
+    rig = synthetic.default_calibration(h, w, proj)
+    scene = synthetic.rotated_scene(headline_scene(700.0), 0.0)
+    t0 = time.perf_counter()
+    stack = render_stop(scene, rig, h, w, proj)
+    print(f"cleanup: rendered one stop with the wall at z = 700, "
+          f"{stack.shape[0]} frames at {h}x{w}, in "
+          f"{time.perf_counter() - t0:.1f} s (untimed set-up)", flush=True)
+    calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
+    counters = {"brick_knn_cells": brickknn_kernel.brick_knn_cells,
+                "matvec_band": poisson_matvec.matvec_band,
+                "classify_cells": marching_classify.classify_cells}
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    stages, plane_stats, solve, mesh_timing = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+
+        def lap(name):
+            nonlocal t
+            _sync(dev)
+            now = time.perf_counter()
+            stages[name] = now - t
+            t = now
+
+        res = pipeline.reconstruct(stack, calib, proj.col_bits,
+                                   proj.row_bits, device=dev)
+        cloud = pipeline.to_point_cloud(res)
+        lap("reconstruct_s")
+        ply_path = os.path.join(tmp, "stop.ply")
+        write_ply(ply_path, cloud)
+        cloud = read_ply(ply_path)
+        lap("ply_s")
+        bg = merge.remove_background(cloud, stats=plane_stats, device=dev)
+        lap("background_s")
+        clean = merge.remove_outliers(bg, device=dev)
+        lap("outliers_s")
+        stl_path = os.path.join(tmp, "model.stl")
+        mesh = meshing.reconstruct_stl(clean, stl_path, depth=depth,
+                                       timing=mesh_timing, solve_stats=solve,
+                                       device=dev)
+        lap("mesh_s")
+        launches = {name: fn.launches for name, fn in counters.items()}
+        back = read_stl(stl_path)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    print(f"cleanup: points {len(cloud)} captured -> {len(bg)} after the "
+          f"background -> {len(clean)} after the outliers; mesh "
+          f"{len(mesh.vertices)} vertices, {len(mesh.faces)} faces; wall "
+          f"{sum(stages.values()):.3f} s; stages (s): " + ", ".join(
+              f"{k}={v:.3f}" for k, v in stages.items()) + "; mesh stages "
+          f"(s): " + ", ".join(f"{k}={v:.3f}" for k, v in mesh_timing.items())
+          + f"; band {solve.get('n_blocks')} blocks, fine CG "
+          f"{solve.get('cg_iters_used')}; peak device memory "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches}", flush=True)
+
+    # The plane: the wall's normal ±z and its offset 700 mm.
+    plane = np.asarray(plane_stats["plane"], np.float64)
+    tilt = float(np.degrees(np.arccos(min(1.0, abs(plane[2])
+                                          / np.linalg.norm(plane[:3])))))
+    z0 = -plane[3] / plane[2]
+    on_wall = np.abs(clean.points[:, 2] - 700.0) < 10.0
+    spheres = scene.spheres
+    near = surface_distance(cloud.points.astype(np.float64), spheres) <= 2.0
+    kept = _row_mask(cloud.points, clean.points)
+    survive = float(kept[near].mean()) if near.any() else 0.0
+    pts = clean.points.astype(np.float64)
+    voxel = 1.2 * float((pts.max(0) - pts.min(0)).max()) / (2 ** depth - 1)
+    gap = cKDTree(pts).query(mesh.vertices.astype(np.float64),
+                             distance_upper_bound=2 * voxel)[0]
+    close = np.isfinite(gap)
+    med = float(np.median(surface_distance(
+        mesh.vertices[close].astype(np.float64), spheres))) \
+        if close.any() else float("inf")
+    n_inl = plane_stats["inliers"]
+    print(f"cleanup: plane {np.round(plane, 5).tolist()} ({n_inl} "
+          f"inliers): tilt {tilt:.4f} deg, z = {z0:.3f} mm; "
+          f"{on_wall.mean():.5f} of the survivors within 10 mm of the wall; "
+          f"{survive:.5f} of the {int(near.sum())} points within 2 mm of "
+          f"the spheres survive both passes; {int(close.sum())} mesh "
+          f"vertices within two voxels ({2 * voxel:.3f} mm) of the cleaned "
+          f"cloud, median {med:.4f} mm from the spheres; STL read back: "
+          f"{len(back.faces)} faces", flush=True)
+    cleanup_engines(dev, bg, clean, spheres)
+    if tilt > 1.0 or abs(z0 - 700.0) > 2.0:
+        fail(f"cleanup: the plane is {tilt:.3f} deg and {z0 - 700.0:.3f} mm "
+             "off the wall")
+    if on_wall.mean() >= 0.005:
+        fail(f"cleanup: {on_wall.mean():.4f} of the survivors lie on the "
+             "wall")
+    if survive < 0.95:
+        fail(f"cleanup: only {survive:.4f} of the sphere points survive")
+    if launches["brick_knn_cells"] != 2:
+        fail(f"cleanup: brick_knn_cells launched "
+             f"{launches['brick_knn_cells']} times, not 2 (outliers k = 20, "
+             "normals k = 30)")
+    if launches["matvec_band"] != 1 + solve.get("cg_iters_used", -1) \
+            or launches["classify_cells"] != 1:
+        fail(f"cleanup: matvec_band {launches['matvec_band']} launches (want"
+             f" 1 + {solve.get('cg_iters_used')}), classify_cells "
+             f"{launches['classify_cells']} (want 1)")
+    if len(mesh.faces) <= 10_000 or len(back.faces) != len(mesh.faces):
+        fail(f"cleanup: the mesh has {len(mesh.faces)} faces, "
+             f"{len(back.faces)} read back")
+    if not np.isfinite(mesh.vertices).all() or med > 1.0:
+        fail(f"cleanup: the mesh is {med:.3f} mm from the spheres (median)")
+    return launches["brick_knn_cells"]
+
+
+def cleanup_engines(dev, bg, clean, spheres) -> None:
+    """After the cleanup path's counts were read: the brick kernel against
+    its plain version on the two inputs that path gave it (the outlier
+    removal's padded k = 20 sweep without self, the normals' k = 30 sweep
+    of the cleaned cloud), then, with the exact neighbours by brute force,
+    the ``dense`` engine, ``morton`` (the port's route at this size before
+    the brick kernel) and ``rescue`` (the path's), each sweep's recall, the
+    outlier keep mask and the normals, compared pair by pair."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud,
+    )
+
+    pts_p, val_p = merge._pad_cloud(bg.points, dev)
+    pts_c = torch.from_numpy(np.asarray(clean.points, np.float32)).to(dev)
+    val_c = torch.ones(len(pts_c), dtype=torch.bool, device=dev)
+    brick_exact(dev, pts_p, val_p, 20, True,
+                f"cleanup outliers ({len(bg)} points padded to "
+                f"{len(pts_p)}, k=20, exclude_self)")
+    brick_exact(dev, pts_c, val_c, 30, False,
+                f"cleanup normals ({len(pts_c)} points, k=30, self "
+                "included)")
+
+    # The exact neighbours of every point, then each engine's two sweeps:
+    # recall against them, the SOR keep mask by the 2σ rule of
+    # ``statistical_outlier_removal`` (the path's rescue mask is rebuilt
+    # too, as a check of the rule), the normals from the k = 30 sweep.
+    def sor_keep(d2, nbv, valid):
+        mean_d = torch.where(nbv, torch.sqrt(d2), torch.zeros((), device=dev)
+                             ).sum(1) / nbv.sum(1).clamp_min(1)
+        keep, decidable = pointcloud._sor_mask(mean_d, nbv.sum(1) > 0, valid,
+                                               2.0)
+        return torch.where(decidable.any(), keep, valid).cpu().numpy()
+
+    sweeps = (("SOR", pts_p, val_p, 20, True, len(bg)),
+              ("normals", pts_c, val_c, 30, False, len(pts_c)))
+    nbs = {}
+    _sync(dev)
+    t = time.perf_counter()
+    for name, p, v, k, excl, n in sweeps:
+        d2, idx = brute_knn(p, v, k, excl, torch.arange(n, device=dev))
+        pad = len(p) - n
+        nbs[name, "exact"] = (
+            torch.cat([d2, d2.new_zeros((pad, k))]),
+            torch.cat([idx, idx.new_zeros((pad, k))]),
+            v[:, None] & torch.isfinite(torch.cat([d2, d2.new_zeros((pad, k))
+                                                   ])))
+    _sync(dev)
+    secs = {"exact": time.perf_counter() - t}
+    methods = ("dense", "morton", "rescue")
+    for m in methods:
+        t = time.perf_counter()
+        for name, p, v, k, excl, _ in sweeps:
+            nbs[name, m] = pointcloud._self_knn(p, k, v, excl, m)
+        _sync(dev)
+        secs[m] = time.perf_counter() - t
+    engines = ("exact",) + methods
+    keep = {m: sor_keep(*nbs["SOR", m][::2], val_p)[:len(bg)]
+            for m in engines}
+    nrm = {m: pointcloud.estimate_normals(pts_c, k=30,
+                                          neighbors=nbs["normals", m])[0]
+           for m in engines}
+    rec = {(name, m): knn_recall(nbs[name, "exact"][1][:n], nbs[name, m][1][:n],
+                                 nbs[name, m][2][:n])
+           for name, _, _, _, _, n in sweeps for m in methods}
+    near = surface_distance(bg.points.astype(np.float64), spheres) <= 2.0
+    path_keep = _row_mask(bg.points, clean.points)
+    print(f"cleanup engines on {dev.type}: SOR (k = 20) on {len(bg)} points "
+          f"kept " + ", ".join(
+              f"{m} {int(keep[m].sum())} ({float(keep[m][near].mean()):.5f}"
+              f" of the {int(near.sum())} within 2 mm of the spheres)"
+              for m in engines)
+          + f"; the path's mask equals rescue's: "
+          f"{bool(np.array_equal(path_keep, keep['rescue']))}; recall "
+          f"against the exact neighbours of every point, SOR k = 20 / "
+          f"normals k = 30: " + ", ".join(
+              f"{m} {rec['SOR', m]:.5f} / {rec['normals', m]:.5f}"
+              for m in methods)
+          + "; seconds for both sweeps: " + ", ".join(
+              f"{m} {secs[m]:.2f}" for m in engines), flush=True)
+    for i, a in enumerate(engines):
+        for b in engines[i + 1:]:
+            dis = keep[a] != keep[b]
+            cos = torch.nan_to_num((nrm[a] * nrm[b]).sum(1).abs(),
+                                   nan=0.0).clamp(max=1.0)
+            ang = torch.rad2deg(torch.acos(cos)).cpu().numpy()
+            print(f"cleanup engines {a} vs {b}: SOR keep masks disagree on "
+                  f"{int(dis.sum())} of {len(bg)} points "
+                  f"({int(dis[near].sum())} of them within 2 mm of the "
+                  f"spheres); normals (k = 30, {len(pts_c)} points) differ "
+                  f"by > 1 deg on {int((ang > 1.0).sum())}, > 10 deg on "
+                  f"{int((ang > 10.0).sum())}, median {np.median(ang):.4f} "
+                  "deg", flush=True)
 
 
 def synthetic_spheres(scene):
@@ -1037,6 +1557,86 @@ def small_rig_agreement(dev) -> None:
     if abs(len(a.faces) - len(b.faces)) > 0.03 * len(b.faces) or med > 0.25:
         fail(f"the mesh on {dev.type} disagrees with the host run")
     small_rig_stream(dev, stacks, rig, proj)
+    small_rig_brick_ring(dev, stacks, rig, proj, params)
+    small_rig_cleanup(dev, rig, proj, scene)
+
+
+def small_rig_brick_ring(dev, stacks, rig, proj, params) -> None:
+    """The small rig's ring with ``fpfh_engine="brick"``, on the card and on
+    the host: every pose within 0.5° of the host's and of i·10°."""
+    import dataclasses
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    h, w = stacks.shape[2:]
+    params = dataclasses.replace(params, merge=dataclasses.replace(
+        params.merge, fpfh_engine="brick"))
+    poses = {}
+    for d in (dev, torch.device("cpu")):
+        calib = make_calibration(*rig, h, w, proj.width, proj.height,
+                                 device=d)
+        poses[d.type] = scan360.scan_stacks_to_cloud(
+            stacks, calib, proj.col_bits, proj.row_bits, params=params,
+            device=d)[1]
+    worst = max(max(rotation_deg(a[:3, :3] @ b[:3, :3].T),
+                    abs(rotation_deg(a[:3, :3]) - 10.0 * i))
+                for i, (a, b) in enumerate(zip(poses[dev.type],
+                                               poses["cpu"])))
+    print(f"small rig ring, brick FPFH, {dev.type} vs cpu: worst pose gap "
+          f"{worst:.4f} deg", flush=True)
+    if worst > 0.5:
+        fail(f"the brick-FPFH ring on {dev.type} disagrees with the host "
+             "run")
+
+
+def small_rig_cleanup(dev, rig, proj, scene) -> None:
+    """The cleanup path at the small rig's size (one stop with the wall at
+    z = 700): ``remove_background`` and ``remove_outliers`` on the card and
+    on the host from the same PLY cloud, keep masks ≥ 99% equal (the
+    RANSAC draws of the two devices differ)."""
+    import dataclasses
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+        pipeline,
+        synthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    h, w = 96, 160
+    walled = synthetic.rotated_scene(dataclasses.replace(scene, wall_z=700.0),
+                                     0.0)
+    stack = render_stop(walled, rig, h, w, proj)
+    calib = make_calibration(*rig, h, w, proj.width, proj.height,
+                             device="cpu")
+    cloud = pipeline.to_point_cloud(pipeline.reconstruct(
+        stack, calib, proj.col_bits, proj.row_bits, device="cpu"))
+    masks = {}
+    for d in (dev, torch.device("cpu")):
+        bg = merge.remove_background(cloud, device=d)
+        clean = merge.remove_outliers(bg, device=d)
+        masks[d.type] = (_row_mask(cloud.points, bg.points),
+                         _row_mask(cloud.points, clean.points))
+    agree = [float((a == b).mean()) for a, b in zip(masks[dev.type],
+                                                     masks["cpu"])]
+    print(f"small rig cleanup, {dev.type} vs cpu: {len(cloud)} points, "
+          f"{int(masks[dev.type][0].sum())} vs {int(masks['cpu'][0].sum())} "
+          f"after the background, {int(masks[dev.type][1].sum())} vs "
+          f"{int(masks['cpu'][1].sum())} after the outliers; keep masks "
+          f"agree {agree[0]:.5f} / {agree[1]:.5f}", flush=True)
+    if min(agree) < 0.99:
+        fail(f"the cleanup path on {dev.type} disagrees with the host run")
 
 
 def small_rig_stream(dev, stacks, rig, proj) -> None:
@@ -1126,13 +1726,14 @@ def main() -> int:
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
                check_matvec(dev, band), check_classify(dev, band),
-               check_combine(dev)]
+               check_combine(dev), check_brick_knn(dev)]
     del band
     if args.kernels_only:
         return 0
     launches, ring = main_path(dev, N_STOPS, profile=args.profile)
     launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
     del ring
+    launches["brick_knn_cells"] = cleanup_path(dev)
     small_rig_agreement(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]

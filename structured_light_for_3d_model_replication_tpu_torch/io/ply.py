@@ -1,6 +1,6 @@
 """PLY codec (copy of the JAX package's ``io/ply.py``: the ``PointCloud``
-writer, and the triangle-mesh writer and reader that carry per-vertex
-normals and colours — a coloured mesh has no other file format;
+reader and writer, and the triangle-mesh writer and reader that carry
+per-vertex normals and colours — a coloured mesh has no other file format;
 binary_little_endian, or ASCII).
 
 The reference's ASCII layout (x y z at %.4f + uchar red green blue) is the
@@ -88,6 +88,41 @@ def _parse_header(f):
         elif tok[0] == b"end_header":
             break
     return fmt, elements
+
+
+def read_ply(path) -> PointCloud:
+    """Read a PLY point cloud (the vertex element; any other element is
+    skipped). ``path`` is a filesystem path or an open binary file
+    object."""
+    with _binary_source(path) as f:
+        fmt, elements = _parse_header(f)
+        vertex = next((e for e in elements if e[0] == "vertex"), None)
+        if vertex is None:
+            raise ValueError(f"{path}: no vertex element")
+        _, n, props = vertex
+        if any(p[0] == "list" for p in props):
+            raise ValueError("list property on vertex element unsupported")
+        names = [p[1] for p in props]
+        if fmt == "ascii":
+            # The vertex element comes first in every writer we read.
+            raw = np.loadtxt(f, dtype=np.float64, max_rows=n, ndmin=2)
+            cols = {nm: raw[:, i] for i, nm in enumerate(names)}
+        elif fmt == "binary_little_endian":
+            dt = np.dtype([(nm, "<" + _PLY_TO_NP[t]) for t, nm in props])
+            raw = np.frombuffer(f.read(dt.itemsize * n), dtype=dt, count=n)
+            cols = {nm: raw[nm] for nm in names}
+        else:
+            raise ValueError(f"unsupported PLY format {fmt!r}")
+    pts = np.stack([cols["x"], cols["y"], cols["z"]], axis=-1).astype(
+        np.float32)
+    colors = normals = None
+    if all(c in cols for c in ("red", "green", "blue")):
+        colors = np.stack([cols["red"], cols["green"], cols["blue"]],
+                          axis=-1).astype(np.uint8)
+    if all(c in cols for c in ("nx", "ny", "nz")):
+        normals = np.stack([cols["nx"], cols["ny"], cols["nz"]],
+                           axis=-1).astype(np.float32)
+    return PointCloud(pts, colors, normals)
 
 
 def write_ply(path, cloud: PointCloud, binary: bool = True) -> None:

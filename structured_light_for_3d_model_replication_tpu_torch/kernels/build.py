@@ -28,8 +28,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math and no -ftz=true: classify compares against iso with
-# gradual underflow, and matvec and the TSDF combine round op by op (true
-# division included) like their plain versions.
+# gradual underflow, and matvec, the TSDF combine and the brick KNN round op
+# by op (true division included) like their plain versions.
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
           "-v")
 
@@ -50,6 +50,8 @@ _SIGNATURES = {
     # n, max_weight, stream
     "sl_tsdf_combine": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                         ctypes.c_float, _P),
+    # bricks, nbr, nnb, cells, k, exclude_self, out_d, out_i, stream
+    "sl_brick_knn": (_P, _P, _P, _L, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

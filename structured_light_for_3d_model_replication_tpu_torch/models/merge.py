@@ -1,6 +1,9 @@
-"""360° sequential chain merge (counterpart of the JAX ``models/merge.py``:
-the per-stop preprocess, the ring's edge registration with the
-turntable-axis prior, and the final voxel → SOR → normals cleanup).
+"""360° merge workflows (counterpart of the JAX ``models/merge.py``): the
+per-stop preprocess, the ring's edge registration with the turntable-axis
+prior, the final voxel → SOR → normals cleanup, the file-level ring merges
+(:func:`merge_pro_360`, :func:`merge_posegraph_360`,
+:func:`merge_360_files`), pairwise registration and the cleanup workflows
+(:func:`remove_background`, :func:`remove_outliers`).
 
 Reference flow (`server/processing.py:115-181`): for each consecutive pair,
 voxel downsample → normals → FPFH → feature RANSAC → point-to-plane ICP;
@@ -15,7 +18,7 @@ come from its own ``torch.Generator`` seeded from (seed, edge index)
 edges one stop at a time (:func:`preprocess_registration_view`,
 :func:`register_edge`, :func:`axis_prior_pass`) draws the same numbers as
 the batch ring. The streams differ from the JAX package's ``jax.random``
-keys.
+keys. The public entry points take ``device=None``, which means the card.
 """
 
 from __future__ import annotations
@@ -27,8 +30,19 @@ import math
 import numpy as np
 import torch
 
+from .. import health as health_mod
+from .._device import resolve_device
 from ..io import ply as ply_io
-from ..ops import features, nn, pointcloud, registration
+from ..io.layout import list_clouds
+from ..ops import (
+    features,
+    features_brick,
+    nn,
+    pointcloud,
+    posegraph,
+    registration,
+    segmentation,
+)
 from ..ops.knn import knn
 from ..ops.posegraph import log_so3
 from ..ops.sor_normals import sor_normals
@@ -53,6 +67,15 @@ class MergeParams:
     icp_iterations: int = 30
     fpfh_max_nn: int = 100
     normals_k: int = 30
+    # FPFH engine of the per-view preprocess: "gather" (neighbour lists of
+    # the shared KNN sweep, ops/features.py) or "brick" (the sorted brick
+    # layout, ops/features_brick.py; the shared KNN shrinks to
+    # ``normals_k`` and every in-radius pair is histogrammed).
+    fpfh_engine: str = "gather"
+    # The brick engine's per-cell candidate slots and occupied-cell budget;
+    # past them it thins candidates (logged), so raise these when it warns.
+    fpfh_slots: int = 48
+    fpfh_max_cells: int = 1024
     final_nb_neighbors: int = 20      # final SOR (`server/processing.py:174`)
     final_std_ratio: float = 2.0
     loop_closure: bool = True         # pose-graph method only
@@ -72,12 +95,27 @@ class MergeParams:
     final_max_points: int = 1_048_576
 
 
-def _preprocess(pts, valid, voxel: float, normals_k: int, fpfh_max_nn: int):
+def _preprocess(pts, valid, voxel: float, normals_k: int, fpfh_max_nn: int,
+                fpfh_engine: str = "gather", fpfh_slots: int = 48,
+                fpfh_max_cells: int = 1024):
     """`preprocess_point_cloud` (`server/processing.py:78-96`): voxel
-    downsample, normals, FPFH at 5·voxel. ONE shared KNN sweep feeds both
-    normals (first ``normals_k`` columns) and FPFH (all ``fpfh_max_nn``).
-    Returns (pts, valid, normals, feat)."""
+    downsample, normals, FPFH at 5·voxel. "gather": ONE shared KNN sweep
+    feeds both normals (first ``normals_k`` columns) and FPFH (all
+    ``fpfh_max_nn``). "brick": a ``normals_k`` sweep for the normals and
+    the brick-layout FPFH, whose candidate thinning is logged. Returns
+    (pts, valid, normals, feat)."""
+    if fpfh_engine not in ("gather", "brick"):
+        raise ValueError(f"unknown fpfh_engine {fpfh_engine!r}")
     dpts, _, dvalid, _ = pointcloud.voxel_downsample(pts, voxel, valid=valid)
+    if fpfh_engine == "brick":
+        nb = knn(dpts, normals_k, points_valid=dvalid)
+        normals, nvalid = pointcloud.estimate_normals(
+            dpts, valid=dvalid, k=normals_k, neighbors=nb)
+        feat, fvalid, n_overflow = features_brick.fpfh_brick(
+            dpts, normals, 5.0 * voxel, valid=nvalid, slots=fpfh_slots,
+            max_cells=fpfh_max_cells)
+        features_brick.emit_overflow_warning(n_overflow, nvalid.sum())
+        return dpts, dvalid & nvalid & fvalid, normals, feat
     nb = knn(dpts, max(normals_k, fpfh_max_nn), points_valid=dvalid)
     normals, nvalid = pointcloud.estimate_normals(dpts, valid=dvalid,
                                                   k=normals_k, neighbors=nb)
@@ -219,7 +257,8 @@ def preprocess_registration_view(points, valid, params: MergeParams):
     per-stop half of an incremental ring. Returns the ``(pts, valid,
     normals, feat)`` tuple :func:`register_edge` consumes."""
     return _preprocess(points, valid, params.voxel_size, params.normals_k,
-                       params.fpfh_max_nn)
+                       params.fpfh_max_nn, params.fpfh_engine,
+                       params.fpfh_slots, params.fpfh_max_cells)
 
 
 def register_edge(src_prep, dst_prep, params: MergeParams,
@@ -320,3 +359,259 @@ def _finalize(points, colors, valid, params: MergeParams,
     return ply_io.PointCloud(points=dpts.cpu().numpy()[keep_np],
                              colors=colors_u8,
                              normals=normals.cpu().numpy()[keep_np])
+
+
+# ---------------------------------------------------------------------------
+# File-level ring merges (`server/processing.py:115-181`, `Old/360Merge.py`)
+# ---------------------------------------------------------------------------
+
+
+class _Padded:
+    """N clouds stacked to one (N, M, 3) tensor + valid masks (+ colours) on
+    ``device``, and a registration view capped at ``max_points`` per scan
+    (a deterministic uniform subsample, numpy seed 0, stands in for a
+    larger cloud — the JAX package's selection)."""
+
+    def __init__(self, clouds, max_points: int | None, device):
+        if len(clouds) < 2:
+            raise ValueError("need at least two clouds to merge")
+        m = _round_up(max(len(c.points) for c in clouds))
+        n = len(clouds)
+        pts = np.zeros((n, m, 3), np.float32)
+        val = np.zeros((n, m), bool)
+        col = np.zeros((n, m, 3), np.float32)
+        self.has_colors = any(c.colors is not None for c in clouds)
+        for i, c in enumerate(clouds):
+            k = len(c.points)
+            pts[i, :k] = c.points
+            val[i, :k] = True
+            if c.colors is not None:
+                col[i, :k] = c.colors
+        self.points = torch.from_numpy(pts).to(device)
+        self.valid = torch.from_numpy(val).to(device)
+        self.colors = torch.from_numpy(col).to(device)
+        self.reg_points, self.reg_valid = self.points, self.valid
+        if max_points is not None and m > _round_up(max_points):
+            mr = _round_up(max_points)
+            rpts = np.zeros((n, mr, 3), np.float32)
+            rval = np.zeros((n, mr), bool)
+            rng = np.random.default_rng(0)
+            for i, c in enumerate(clouds):
+                k = len(c.points)
+                if k > mr:
+                    rpts[i] = c.points[rng.choice(k, mr, replace=False)]
+                    rval[i] = True
+                else:
+                    rpts[i, :k] = c.points
+                    rval[i, :k] = True
+            self.reg_points = torch.from_numpy(rpts).to(device)
+            self.reg_valid = torch.from_numpy(rval).to(device)
+
+
+def _apply_poses_and_merge(padded: _Padded, poses, params: MergeParams):
+    """Every scan under its pose, concatenated (still padded), through the
+    final cleanup."""
+    moved = registration.transform_points(poses.to(torch.float32),
+                                          padded.points)
+    return _finalize(moved.reshape(-1, 3), padded.colors.reshape(-1, 3),
+                     padded.valid.reshape(-1), params,
+                     has_colors=padded.has_colors)
+
+
+def _gate_ring_edges(n: int, Ts, infos, fit, rmse, loop: bool,
+                     gates: health_mod.QualityGates, params: MergeParams,
+                     health: health_mod.ScanHealthReport | None):
+    """The ring's edges verdicted against ``gates``: rejects replaced by the
+    ring-consensus step and down-weighted for the pose graph
+    (:func:`..health.gate_edges`). Host arrays in, host arrays out."""
+    edges = health_mod.ring_edges(range(n), loop)
+    Ts2, infos2, _ = health_mod.gate_edges(
+        edges, np.asarray(Ts), np.asarray(fit), np.asarray(rmse),
+        np.asarray(infos), gates, step_deg=params.step_deg, report=health)
+    return Ts2, infos2
+
+
+def merge_pro_360(clouds, params: MergeParams | None = None, seed: int = 0,
+                  gates: health_mod.QualityGates | None = None,
+                  health: health_mod.ScanHealthReport | None = None,
+                  device=None):
+    """Sequential chain merge — `ProcessingLogic.merge_pro_360`
+    (`server/processing.py:115-181`): scan i registers onto scan i−1, poses
+    chain, no loop closure. With ``gates``, failing edges are replaced by
+    the ring-consensus step before chaining. ``seed`` seeds the per-edge
+    RANSAC generators. Returns (merged PointCloud, poses (N, 4, 4))."""
+    params = params or MergeParams()
+    dev = resolve_device(device)
+    padded = _Padded(clouds, params.max_points, dev)
+    Ts, infos, fit, rmse = register_sequence(
+        padded.reg_points, padded.reg_valid, params, seed=seed)
+    if gates is not None:
+        Ts2, _ = _gate_ring_edges(len(clouds), Ts.cpu().numpy(),
+                                  infos.cpu().numpy(), fit, rmse, False,
+                                  gates, params, health)
+        Ts = torch.from_numpy(Ts2).to(dev)
+    poses = posegraph.chain_poses(Ts)
+    merged = _apply_poses_and_merge(padded, poses, params)
+    log.info("merge_pro_360: %d scans → %d points", len(clouds), len(merged))
+    return merged, poses.cpu().numpy()
+
+
+def merge_posegraph_360(clouds, params: MergeParams | None = None,
+                        seed: int = 0,
+                        gates: health_mod.QualityGates | None = None,
+                        health: health_mod.ScanHealthReport | None = None,
+                        device=None):
+    """Pose-graph merge with loop closure (`Old/360Merge.py:43-84`): edge
+    transforms and information matrices → Levenberg-Marquardt → merge under
+    the optimized poses. With ``gates``, failing edges keep the graph
+    connected but barely vote and take the ring-consensus step. Returns
+    (merged PointCloud, poses (N, 4, 4))."""
+    params = params or MergeParams()
+    dev = resolve_device(device)
+    n = len(clouds)
+    padded = _Padded(clouds, params.max_points, dev)
+    loop = params.loop_closure
+    Ts, infos, fit, rmse = register_sequence(
+        padded.reg_points, padded.reg_valid, params, seed=seed,
+        loop_closure=loop)
+    if gates is not None:
+        Ts2, infos2 = _gate_ring_edges(n, Ts.cpu().numpy(),
+                                       infos.cpu().numpy(), fit, rmse, loop,
+                                       gates, params, health)
+        Ts = torch.from_numpy(Ts2).to(dev)
+        infos = torch.from_numpy(infos2).to(dev)
+    graph = posegraph.build_360_graph(
+        Ts[:n - 1], infos[:n - 1], Ts[n - 1] if loop else None,
+        infos[n - 1] if loop else None)
+    poses = posegraph.optimize(graph, iterations=params.posegraph_iterations)
+    merged = _apply_poses_and_merge(padded, poses, params)
+    log.info("merge_posegraph_360: %d scans → %d points", n, len(merged))
+    return merged, poses.cpu().numpy()
+
+
+def merge_360_files(folder: str, output_path: str,
+                    params: MergeParams | None = None,
+                    method: str = "posegraph", seed: int = 0,
+                    gates: health_mod.QualityGates | None = None,
+                    health: health_mod.ScanHealthReport | None = None,
+                    device=None):
+    """File-level entry of the GUI action (`server/gui.py:622-641`): read
+    every ``*.ply`` in ``folder`` (numeric order), merge, write the result.
+    Returns the merged cloud."""
+    if method not in ("posegraph", "sequential"):
+        raise ValueError(f"method must be 'posegraph' or 'sequential', "
+                         f"got {method!r}")
+    dev = resolve_device(device)
+    paths = list_clouds(folder)
+    if len(paths) < 2:
+        raise ValueError(f"need ≥2 .ply files in {folder}, found {len(paths)}")
+    clouds = [ply_io.read_ply(p) for p in paths]
+    fn = merge_posegraph_360 if method == "posegraph" else merge_pro_360
+    merged, _ = fn(clouds, params, seed=seed, gates=gates, health=health,
+                   device=dev)
+    ply_io.write_ply(output_path, merged)
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# Pairwise registration and the cleanup workflows
+# (`Old/New360.py:37-79`, `server/processing.py:24-76`)
+# ---------------------------------------------------------------------------
+
+
+def register_pair(src_pts, src_valid, dst_pts, dst_valid,
+                  params: MergeParams,
+                  generator: torch.Generator | None = None):
+    """RANSAC-seeded point-to-plane ICP of src onto dst, the inner step of
+    `merge_pro_360` (`server/processing.py:146-156`), on full-resolution
+    padded clouds (downsampled inside). Returns (RegistrationResult, 6×6
+    information matrix)."""
+    if generator is None:
+        generator = torch.Generator(device=src_pts.device)
+        generator.manual_seed(0)
+    src = preprocess_registration_view(src_pts, src_valid, params)
+    dst = preprocess_registration_view(dst_pts, dst_valid, params)
+    T, fit, rmse, info = register_edge(src, dst, params, generator)
+    return registration.RegistrationResult(T, fit, rmse), info
+
+
+def register_pair_clouds(src: ply_io.PointCloud, dst: ply_io.PointCloud,
+                         params: MergeParams | None = None, seed: int = 0,
+                         device=None):
+    """Two-cloud RANSAC + ICP alignment (the reference's pairwise demo,
+    `Old/New360.py:37-79`). Returns (RegistrationResult, 6×6
+    information matrix)."""
+    dev = resolve_device(device)
+    if params is None:
+        params = MergeParams(voxel_size=_auto_voxel(src.points))
+    s_pts, s_val = _pad_cloud(src.points, dev)
+    d_pts, d_val = _pad_cloud(dst.points, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return register_pair(s_pts, s_val, d_pts, d_val, params, generator=g)
+
+
+def _auto_voxel(points: np.ndarray) -> float:
+    """~1/60 of the bounding-box diagonal, for parameterless entry points."""
+    pts = np.asarray(points, np.float64)
+    if pts.shape[0] == 0:
+        return 1.0
+    diag = float(np.linalg.norm(pts.max(0) - pts.min(0)))
+    return max(diag / 60.0, 1e-6)
+
+
+def _pad_cloud(points: np.ndarray, device):
+    """(N, 3) host points → (M, 3) device tensor padded to a multiple of
+    1024, and its (M,) valid mask."""
+    n = len(points)
+    m = _round_up(n)
+    pts = torch.zeros((m, 3), dtype=torch.float32, device=device)
+    pts[:n] = torch.as_tensor(np.asarray(points, np.float32), device=device)
+    return pts, torch.arange(m, device=device) < n
+
+
+def _select(cloud: ply_io.PointCloud, keep: np.ndarray) -> ply_io.PointCloud:
+    return ply_io.PointCloud(
+        points=cloud.points[keep],
+        colors=None if cloud.colors is None else cloud.colors[keep],
+        normals=None if cloud.normals is None else cloud.normals[keep])
+
+
+def remove_background(cloud: ply_io.PointCloud,
+                      distance_threshold: float = 10.0,
+                      num_iterations: int = 1000, seed: int = 0,
+                      stats: dict | None = None,
+                      device=None) -> ply_io.PointCloud:
+    """Drop the dominant RANSAC plane (the wall or table behind the object)
+    — `ProcessingLogic.remove_background` (`server/processing.py:24-52`).
+    ``seed`` seeds the hypothesis generator; ``stats``, when given,
+    receives the ``plane`` [a, b, c, d] and the ``inliers`` count."""
+    dev = resolve_device(device)
+    pts_p, val_p = _pad_cloud(cloud.points, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    plane, inliers = segmentation.segment_plane(
+        pts_p, distance_threshold=distance_threshold,
+        num_iterations=num_iterations, valid=val_p, generator=g)
+    keep = (val_p & ~inliers).cpu().numpy()[: len(cloud.points)]
+    if stats is not None:
+        stats.update(plane=plane.cpu().numpy(),
+                     inliers=int((inliers & val_p).sum()))
+    log.info("remove_background: %d → %d points", len(cloud.points),
+             int(keep.sum()))
+    return _select(cloud, keep)
+
+
+def remove_outliers(cloud: ply_io.PointCloud, nb_neighbors: int = 20,
+                    std_ratio: float = 2.0, device=None) -> ply_io.PointCloud:
+    """Statistical outlier removal — `ProcessingLogic.remove_outliers`
+    (`server/processing.py:54-76`); on the card at ≥ 131,072 points its
+    KNN sweep takes the brick kernel."""
+    dev = resolve_device(device)
+    pts_p, val_p = _pad_cloud(cloud.points, dev)
+    keep = pointcloud.statistical_outlier_removal(
+        pts_p, valid=val_p, nb_neighbors=nb_neighbors, std_ratio=std_ratio)
+    keep = keep.cpu().numpy()[: len(cloud.points)]
+    log.info("remove_outliers: %d → %d points", len(cloud.points),
+             int(keep.sum()))
+    return _select(cloud, keep)

@@ -35,9 +35,11 @@ log = logging.getLogger(__name__)
 @dataclasses.dataclass(frozen=True)
 class Scan360Params:
     """End-to-end knobs. ``merge`` carries the registration/cleanup
-    settings; ``view_cap`` bounds each stop's contribution to the final
-    merge (slots); ``stop_chunk`` is the number of stops decoded per call,
-    which bounds the dense per-pixel temporaries on the device."""
+    settings (``merge.fpfh_engine`` picks the ring preprocess's FPFH
+    engine, ``"gather"`` or ``"brick"``); ``view_cap`` bounds each stop's
+    contribution to the final merge (slots); ``stop_chunk`` is the number
+    of stops decoded per call, which bounds the dense per-pixel
+    temporaries on the device."""
 
     merge: merge_mod.MergeParams = merge_mod.MergeParams()
     method: str = "sequential"

@@ -1,6 +1,7 @@
 """Point-cloud cleanup (counterpart of the JAX ``ops/pointcloud.py``):
-voxel downsample, stratified subsample, statistical outlier removal and PCA
-normals with the closed-form 3×3 eigensolver.
+voxel downsample, stratified and random subsamples, statistical and radius
+outlier removal and PCA normals with the closed-form 3×3 eigensolver, over
+the self-query KNN dispatch :func:`_self_knn`.
 
 Static shapes as in the JAX package: clouds are dense (N, 3) tensors plus a
 validity mask, "removing" a point clears its mask bit, and voxel
@@ -14,25 +15,51 @@ import math
 import torch
 
 from .._device import div
+from .brickknn import brick_knn
+from .brickknn_kernel import MAX_K as _BRICK_MAX_K
+from .brickknn_kernel import MAX_N as _BRICK_MAX_N
+from .gridknn import grid_knn
 from .knn import check_neighbors, knn
 from .mortonknn import morton_knn
 
-# Above this many points, self-query neighbourhoods route to the Morton
-# engine instead of the dense O(N²) sweep.
+# Above this many points, self-query neighbourhoods leave the dense O(N²)
+# sweep for a spatial engine.
 APPROX_KNN_THRESHOLD = 131_072
 
 
-def _self_knn(points, k, valid, exclude_self, method="auto"):
-    """Self-query KNN dispatch: ``dense`` (exact, ops/knn.py) below
-    :data:`APPROX_KNN_THRESHOLD` points, ``morton`` (ops/mortonknn.py)
-    above. The JAX package's TPU-only brick-kernel branch (``rescue``) and
-    its ``grid`` engine are not part of the port yet."""
-    if method == "auto":
-        method = "dense" if points.shape[0] < APPROX_KNN_THRESHOLD \
+def _auto_method(n: int, k: int, device) -> str:
+    """The ``"auto"`` rule of :func:`_self_knn`, as the JAX package routes on
+    and off its accelerator: ``dense`` below :data:`APPROX_KNN_THRESHOLD`
+    points; above it, on a CUDA device ``rescue`` when k ≤ 32 and n ≤ 2²⁴
+    (the brick kernel's fit) else ``morton``, on the CPU ``morton``."""
+    if n < APPROX_KNN_THRESHOLD:
+        return "dense"
+    if torch.device(device).type == "cuda":
+        return "rescue" if k <= _BRICK_MAX_K and n <= _BRICK_MAX_N \
             else "morton"
+    return "morton"
+
+
+def _self_knn(points, k, valid, exclude_self, method="auto"):
+    """Self-query KNN dispatch.
+
+    ``dense``  — exact tiled matmul (ops/knn.py), O(N²);
+    ``morton`` — Morton-blocked approximate (ops/mortonknn.py);
+    ``rescue`` — brick-grid engine (ops/brickknn.py), recall ≥ 0.99; on a
+                 CUDA tensor its kernel path (``csrc/brick_knn.cu``);
+    ``grid``   — 27-cell spatial grid (ops/gridknn.py);
+    ``auto``   — :func:`_auto_method`."""
+    if method == "auto":
+        method = _auto_method(points.shape[0], k, points.device)
     if method == "morton":
         return morton_knn(points, k, points_valid=valid,
                           exclude_self=exclude_self)
+    if method == "rescue":
+        return brick_knn(points, k, points_valid=valid,
+                         exclude_self=exclude_self)
+    if method == "grid":
+        return grid_knn(points, k, points_valid=valid,
+                        exclude_self=exclude_self)
     if method != "dense":
         raise ValueError(f"unknown neighbor method {method!r}")
     return knn(points, k, points_valid=valid, exclude_self=exclude_self)
@@ -132,9 +159,58 @@ def statistical_outlier_removal(points: torch.Tensor,
     return torch.where(decidable.any(), keep, valid)
 
 
+def radius_outlier_removal(points: torch.Tensor, radius: float,
+                           min_neighbors: int = 5,
+                           valid: torch.Tensor | None = None,
+                           neighbor_method: str = "auto"):
+    """Open3D ``remove_radius_outlier`` semantics
+    (`Old/StatisticalOutlierRemoval.py:86`: nb=5, r=15): keep points with
+    at least ``min_neighbors`` OTHER points within ``radius`` — the m-th
+    nearest other point lies within it. Returns the surviving mask."""
+    n = points.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=points.device)
+    d2, _, nbv = _self_knn(points, min_neighbors, valid, True,
+                           neighbor_method)
+    return valid & nbv[:, -1] & (d2[:, -1] <= radius * radius)
+
+
 # ---------------------------------------------------------------------------
 # Fixed-size subsampling (static-shape compaction)
 # ---------------------------------------------------------------------------
+
+
+def random_subsample(points: torch.Tensor, m: int,
+                     valid: torch.Tensor | None = None,
+                     attrs: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None):
+    """Uniform random subset of the VALID points, compacted to ``m`` static
+    slots: valid points get uniform scores, invalid −inf, and the m largest
+    are kept (all valid ones, surplus slots masked, when fewer exist).
+    Returns ``(out_points (m, 3), out_attrs or None, out_valid (m,))``. The
+    scores come from ``generator`` (default: one seeded 0 on the points'
+    device); they differ from the JAX package's ``jax.random`` draws."""
+    n = points.shape[0]
+    dev = points.device
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    score = torch.where(valid, torch.rand(n, generator=generator, device=dev),
+                        torch.full((), float("-inf"), device=dev))
+    idx = torch.topk(score, m).indices
+    out_valid = valid[idx]
+    zero = torch.zeros((), dtype=points.dtype, device=dev)
+    out_points = torch.where(out_valid[:, None], points[idx], zero)
+    out_attrs = None
+    if attrs is not None:
+        taken = attrs[idx]
+        mask = out_valid.reshape((m,) + (1,) * (taken.dim() - 1))
+        out_attrs = torch.where(mask, taken, torch.zeros(
+            (), dtype=taken.dtype, device=dev))
+    return out_points, out_attrs, out_valid
+
 
 
 def stratified_indices(valid: torch.Tensor, m: int):

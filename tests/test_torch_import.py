@@ -53,11 +53,15 @@ def test_every_port_module_imports_without_jax():
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")]
-        print(len(names), bad)
+        print(len(names), bad, names)
         assert not bad, bad
     """)
     n_modules = int(out.split()[0])
     assert n_modules >= 20
+    for name in ("ops.brickknn", "ops.brickknn_kernel", "ops.gridknn",
+                 "ops.segmentation", "ops.cluster", "ops.features_brick",
+                 "io.layout"):
+        assert f"{PORT}.{name}" in out, name
 
 
 def test_entry_modules_do_not_load_kernel_bindings():
@@ -65,6 +69,10 @@ def test_entry_modules_do_not_load_kernel_bindings():
         import sys
         from {PORT}.models import scan360, pipeline, synthetic, meshing
         from {PORT}.ops import decode, nn, registration, tsdf
+        from {PORT}.ops import (brickknn, brickknn_kernel, cluster,
+                                features_brick, gridknn, pointcloud,
+                                segmentation)
+        from {PORT}.io import layout, ply
         from {PORT} import fusion, stream
         from {PORT}.stream import session
         loaded = [m for m in sys.modules if m.startswith("{PORT}.kernels")
@@ -140,3 +148,34 @@ def test_slice_entry_points_raise_without_cuda(monkeypatch):
     assert vol.state.tsdf.device.type == "cpu"
     sess = IncrementalSession(calib, 3, 2, device="cpu")
     assert sess.device.type == "cpu" and sess.stops_fused == 0
+
+
+def test_cleanup_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The cleanup workflows and the file-level merges: ``device=None``
+    raises without a card; ``device="cpu"`` runs."""
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+        write_ply,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(1)
+    cloud = PointCloud(points=rng.normal(size=(300, 3)).astype(np.float32))
+    for i in range(2):
+        write_ply(str(tmp_path / f"s{i}.ply"), cloud)
+    calls = (lambda: merge.remove_background(cloud),
+             lambda: merge.remove_outliers(cloud),
+             lambda: merge.register_pair_clouds(cloud, cloud),
+             lambda: merge.merge_pro_360([cloud, cloud]),
+             lambda: merge.merge_posegraph_360([cloud, cloud]),
+             lambda: merge.merge_360_files(str(tmp_path),
+                                           str(tmp_path / "out.ply")))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert len(merge.remove_outliers(cloud, device="cpu")) > 250
+    assert len(merge.remove_background(cloud, num_iterations=64,
+                                       device="cpu")) < 300
