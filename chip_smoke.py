@@ -2,8 +2,8 @@
 """On-card smoke run of the PyTorch port on one NVIDIA GPU:
 ``structured_light_for_3d_model_replication_tpu_torch``, from stacks to the
 merged 360° cloud and on to the printable STL, through the streaming
-session, and through the cleanup path of a single capture, with its CUDA
-kernels.
+session and its splat appearance tier (rendered novel views), and through
+the cleanup path of a single capture, with its CUDA kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
@@ -40,15 +40,24 @@ Phases, in order; any failure exits non-zero before the result line:
    ``mesh_from_cloud_async``, compared bit for bit. The 360°, mesh and
    streaming paths must not launch the brick KNN kernel: their clouds stay
    below its 131,072 points;
+5b. the splat appearance tier on the same ring, bench config 12: stops
+   0–22 through a ``"splat"`` session, ``ensure_scene`` (seed on the fused
+   TSDF shell + 200 Adam steps against 8 buffered frames, no composite
+   launch), a 20-view orbit sweep at 384×288 through the composite kernel,
+   and the render from held-out stop 23's predicted camera against the
+   captured RGB, which must be no worse than the JAX package's on this ring
+   (bench [12]'s 20 dB gate is printed; neither package meets it here),
+   while the fit's 8 training views must average 20 dB; the PNG and the
+   scene's npz read back to the same pixels;
 6. the cleanup path of the reference's Process tab on one 1080×1920 stop
    of the bump scene with the rig's wall at z = 700: reconstruct → PLY
    written and read back → ``remove_background`` → ``remove_outliers`` →
    ``reconstruct_stl`` at depth 10, with the brick KNN kernel launched by
    the outlier removal and by the normals of the cleaned cloud;
 7. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, a
-   4-stop TSDF session, the ring with the brick FPFH and the cleanup path
-   of one walled stop, on the card and on the host (the plain versions),
-   compared by outcome;
+   4-stop TSDF session, a 4-stop splat session, the ring with the brick
+   FPFH and the cleanup path of one walled stop, on the card and on the
+   host (the plain versions), compared by outcome;
 8. a ``kernels`` JSON line, the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +81,9 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # non-tensor fp32, H100 SXM data sheet
 NN_FLOPS_PER_PAIR = 8          # 3 sub, 3 mul, 2 add
+# The splat composite per live (pixel, record) pair: 11 for the conic, 4 and
+# an expf for alpha, 10 for the fold (csrc/composite.cu).
+COMPOSITE_FLOPS_PER_PAIR = 25
 N_STOPS, STEP_DEG = 24, 15.0   # the headline ring (bench.py:337-380)
 BRICK_N = 1 << 20              # bench config 3b's cloud (bench.py:1135-1181)
 # What the JAX package's session decides on this ring with the covisibility
@@ -108,6 +120,34 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds per launch of the CUDA kernel whose name
+    holds ``kernel``, over at least ``reps`` of its launches recorded by
+    ``torch.profiler``: for a kernel shorter than its wrapper's host work,
+    where CUDA events around a loop of calls time the host. ``fn`` runs
+    twice ``reps`` times under the profiler, which can miss launches (it
+    once recorded 185 of 200 on the splat path's records); every launch
+    does the same work, so the mean over those recorded stands for all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2 * reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    print(f"  profiler: {len(spans)} of {2 * reps} launches of {kernel} "
+          f"recorded", flush=True)
+    if len(spans) < reps:
+        fail(f"the profiler recorded {len(spans)} launches of {kernel}, "
+             f"fewer than {reps}")
+    return sum(spans) / len(spans) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +674,165 @@ def check_brick_knn(dev):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
+def composite_scene(dev):
+    """A seeded splat scene at config 12's capacity (16,384 slots) on the
+    card: the headline scene's spheres sampled as a coloured oriented cloud
+    (points inside another sphere dropped), through
+    ``splat_scene_from_cloud`` at grid depth 8."""
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.splat import (
+        SplatParams,
+        splat_scene_from_cloud,
+    )
+
+    rng = np.random.default_rng(12)
+    spheres = headline_scene(None).spheres
+    pts, nrm = [], []
+    for s in spheres:
+        d = rng.normal(size=(int(4.0 * np.pi * s.radius ** 2), 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        pts.append(np.asarray(s.center) + s.radius * d)
+        nrm.append(d)
+    pts, nrm = np.concatenate(pts), np.concatenate(nrm)
+    outside = np.ones(len(pts), bool)
+    for s in spheres:
+        outside &= np.linalg.norm(pts - np.asarray(s.center), axis=1) \
+            >= s.radius - 1e-3
+    pts, nrm = pts[outside], nrm[outside]
+    cols = np.clip(127.5 + 127.5 * np.sin(pts / 17.0), 0, 255)
+    cloud = PointCloud(points=pts.astype(np.float32),
+                       colors=cols.astype(np.uint8),
+                       normals=nrm.astype(np.float32))
+    return splat_scene_from_cloud(cloud, SplatParams(capacity=16_384),
+                                  depth=8, max_bricks=16_384, device=dev)
+
+
+def composite_agrees(planes, x0, y0, tile: int, label: str) -> float:
+    """``composite_cells`` against its plain version on one set of
+    records, to 1e-5 (the JAX package's tolerance between its two
+    composite forms, tests/test_splat.py: the K-sum runs in another
+    order); fails on a larger gap or a non-finite output. Returns the
+    gap."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_composite as sc,
+    )
+
+    got = sc.composite(*planes, x0, y0, tile)
+    ref = sc.composite_reference(*planes, x0, y0, tile)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(a).all()) for a in (*got, *ref))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    print(f"composite_cells {label}: max |kernel - plain| = {err:.3e}, "
+          f"outputs finite {finite}", flush=True)
+    if not finite or not err <= 1e-5:
+        fail(f"composite_cells disagrees with its plain version ({label})")
+    return err
+
+
+def composite_timing(recs, x0, y0, tile: int, label: str) -> dict:
+    """Device milliseconds of ``composite_cells`` on one set of records
+    (by the profiler: the kernel runs for less time than its wrapper's
+    host work, so CUDA events around a loop of calls time the host; the
+    call's time comes from the events), its plain version's, and its bound
+    from these records: the ten planes read once, the tile origins, (rgb,
+    alpha) per pixel written once, and every live (pixel, record) pair one
+    fold step."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_composite as sc,
+    )
+
+    ms = device_ms(lambda: sc.composite(*recs, x0, y0, tile), 200,
+                   "composite_cells")
+    call_ms = cuda_ms(lambda: sc.composite(*recs, x0, y0, tile), 200)
+    plain_ms = cuda_ms(lambda: sc.composite_reference(*recs, x0, y0, tile),
+                       20)
+    n_tiles, kk = recs[0].shape
+    t2 = tile ** 2
+    live = int(recs[9].sum())
+    nbytes = 40 * n_tiles * kk + 8 * n_tiles + 16 * n_tiles * t2
+    pairs = live * t2
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = pairs * COMPOSITE_FLOPS_PER_PAIR / H100_FP32_FLOPS * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    print(f"composite_cells {label}: {n_tiles} tiles x K = {kk}, {live} of "
+          f"{n_tiles * kk} slots live ({live / (n_tiles * kk):.4f}): "
+          f"{ms:.4f} ms/launch on the device ({call_ms:.4f} ms a call with "
+          f"the wrapper), bound {bound_ms:.4f} ms ({bound_by}; bytes "
+          f"{bytes_ms:.4f} ms, {nbytes / 1e6:.2f} MB; operations "
+          f"{ops_ms:.4f} ms, {pairs / 1e6:.2f} M live pairs x "
+          f"{COMPOSITE_FLOPS_PER_PAIR}), plain {plain_ms:.3f} ms, library "
+          f"yardstick: none (no single PyTorch call computes this "
+          f"front-to-back fold)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def check_composite(dev):
+    """``composite_cells`` against its plain version at config 12's render
+    (384×288, tile 8, K = 128, 1,728 tiles, records of a seeded 16,384-slot
+    scene) and at a ragged shape (tile 16, K = 77, 1,009 tiles, half the
+    slots masked), the ragged one also with NaN in every masked slot, and
+    timed on the first. The splat path times it again on its own records
+    (``splat_path``), and those numbers go into the ``kernels`` line."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_composite as sc,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_render as sr,
+    )
+
+    scene = composite_scene(dev)
+    cfg = sr.RenderConfig()
+    cam = sr.camera_tensors(scene.camera(30.0, 20.0, cfg.width, cfg.height),
+                            dev)
+    recs, x0, y0 = sr._tile_records(
+        scene.means, scene.normals, scene.log_scales, scene.colors_sh,
+        scene.opacity, scene.valid, *cam, cfg)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    nt, k, tile = 1009, 77, 16
+
+    def u(lo, hi, shape=(nt, k)):
+        return torch.rand(shape, device=dev, generator=g) * (hi - lo) + lo
+
+    rx0 = torch.floor(u(0, 24, (nt,))) * tile
+    ry0 = torch.floor(u(0, 18, (nt,))) * tile
+    ca, cc = u(0.02, 0.5), u(0.02, 0.5)
+    ragged = [rx0[:, None] + u(-6, tile + 6), ry0[:, None] + u(-6, tile + 6),
+              ca, u(-0.9, 0.9) * torch.sqrt(ca * cc), cc, u(0, 1), u(0, 1),
+              u(0, 1), u(0.05, 0.99), u(0, 1) < 0.5]
+    poisoned = [torch.where(ragged[9], a, torch.full((), float("nan"),
+                                                     device=dev))
+                for a in ragged[:9]] + [ragged[9]]
+    max_err = max(
+        composite_agrees(recs, x0, y0, cfg.tile,
+                         f"config 12 render, {int(recs[9].sum())} of "
+                         f"{recs[0].numel()} slots live"),
+        composite_agrees(ragged, rx0, ry0, tile,
+                         "ragged, tile 16, K = 77, 1009 tiles"),
+        composite_agrees(poisoned, rx0, ry0, tile,
+                         "ragged with NaN in the masked slots"))
+    ref_ragged = sc.composite_reference(*ragged, rx0, ry0, tile)
+    if max(float((a - b).abs().max()) for a, b in zip(
+            sc.composite(*poisoned, rx0, ry0, tile), ref_ragged)) > 1e-5:
+        fail("composite_cells: NaN in masked slots changed the pixels")
+    timing = composite_timing(recs, x0, y0, cfg.tile,
+                              "on the sphere-cloud scene")
+    return dict(name="composite_cells", route="cuda",
+                source="structured_light_for_3d_model_replication_tpu_torch/"
+                       "csrc/composite.cu",
+                replaces="structured_light_for_3d_model_replication_tpu/ops/"
+                         "splat_render_pallas.py:76",
+                max_abs_err=max_err, library_ms=None, **timing)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full size
 # ---------------------------------------------------------------------------
@@ -768,6 +967,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
         brickknn_kernel,
         decode,
         nn,
+        splat_composite,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
         make_calibration,
@@ -792,6 +992,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     decode.decode_maps.launches = 0
     nn.nearest_one.launches = 0
     brickknn_kernel.brick_knn_cells.launches = 0
+    splat_composite.composite.launches = 0
     timing = {}
     t0 = time.perf_counter()
     merged, poses, stats = scan360.scan_stacks_to_cloud(
@@ -802,6 +1003,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     launches = {"decode_maps": decode.decode_maps.launches,
                 "nearest_one": nn.nearest_one.launches}
     brick = brickknn_kernel.brick_knn_cells.launches
+    composite = splat_composite.composite.launches
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     print(f"main path: {n_stops} stops -> {len(merged)} points in "
@@ -809,7 +1011,8 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
               f"{k}={v:.3f}" for k, v in timing.items()
               if k.endswith("_s")), flush=True)
     print(f"peak device memory {peak / 2**30:.2f} GiB; kernel launches "
-          f"{dict(launches, brick_knn_cells=brick)}", flush=True)
+          f"{dict(launches, brick_knn_cells=brick, composite_cells=composite)}",
+          flush=True)
     worst = 0.0
     for k in range(n_stops):
         R = poses[k][:3, :3].astype(np.float64)
@@ -837,6 +1040,9 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     if brick != 0:
         fail(f"the 360° path launched brick_knn_cells {brick} times: its "
              "clouds stay below the brick engine's 131,072 points")
+    if composite != 0:
+        fail(f"the 360° path launched composite_cells {composite} times: "
+             "it renders nothing")
 
     # Stop 0 triangulated against the rendered ground truth (the decode
     # rounds to the nearest projector column: ~1 pixel of depth).
@@ -890,6 +1096,7 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         brickknn_kernel,
         marching_classify,
         poisson_matvec,
+        splat_composite,
     )
 
     def cloud():  # mesh_360 writes the oriented normals into its cloud
@@ -902,6 +1109,7 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     poisson_matvec.matvec_band.launches = 0
     marching_classify.classify_cells.launches = 0
     brickknn_kernel.brick_knn_cells.launches = 0
+    splat_composite.composite.launches = 0
     timing, stats = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "model.stl")
@@ -915,7 +1123,8 @@ def mesh_path(dev, merged, scene, profile: bool = False):
                     "classify_cells":
                         marching_classify.classify_cells.launches,
                     "brick_knn_cells":
-                        brickknn_kernel.brick_knn_cells.launches}
+                        brickknn_kernel.brick_knn_cells.launches,
+                    "composite_cells": splat_composite.composite.launches}
         back = read_stl(path)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     print(f"mesh path: {len(merged)} points -> {len(mesh.vertices)} "
@@ -941,6 +1150,8 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     if launches.pop("brick_knn_cells") != 0:
         fail("the mesh path launched brick_knn_cells: its cloud carries "
              "normals and stays below 131,072 points")
+    if launches.pop("composite_cells") != 0:
+        fail("the mesh path launched composite_cells: it renders nothing")
     if len(mesh.faces) <= 10_000:
         fail(f"the mesh has only {len(mesh.faces)} faces")
     if len(back.faces) != len(mesh.faces):
@@ -1077,6 +1288,9 @@ def run_session(dev, ring, representation: str, counters):
         fail(f"session {representation} launched brick_knn_cells "
              f"{launches['brick_knn_cells']} times: its clouds stay below "
              "131,072 points")
+    if launches["composite_cells"] != 0:
+        fail(f"session {representation} launched composite_cells "
+             f"{launches['composite_cells']} times: it renders nothing")
     return sess, fin, launches, skipped
 
 
@@ -1099,6 +1313,7 @@ def stream_path(dev, ring):
         marching_classify,
         nn,
         poisson_matvec,
+        splat_composite,
         tsdf_combine,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops.brickknn_kernel import (
@@ -1110,7 +1325,8 @@ def stream_path(dev, ring):
                 "matvec_band": poisson_matvec.matvec_band,
                 "classify_cells": marching_classify.classify_cells,
                 "tsdf_combine": tsdf_combine.tsdf_combine,
-                "brick_knn_cells": brick_knn_cells}
+                "brick_knn_cells": brick_knn_cells,
+                "composite_cells": splat_composite.composite}
     spheres = synthetic_spheres(ring["scene"])
 
     # Session T: the default lane at full width, the gate on.
@@ -1203,6 +1419,270 @@ def stream_path(dev, ring):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: the splat appearance tier on the same ring
+# ---------------------------------------------------------------------------
+
+SPLAT_SWEEP = 20               # novel views of the orbit sweep (bench [12])
+HELD_OUT = 23                  # the stop the fit never sees
+# bench [12]'s quality gate on the held-out view (bench.py:1050). Neither
+# package meets it on this ring: the renderer keeps each tile's 128
+# nearest splats of a median ~650 (ROADMAP Queue 3), so it is printed.
+PSNR_GATE_DB = 20.0
+# What the held-out view is held to instead. On this ring the view is
+# bimodal in both packages: the last digits of the registration move the
+# fused shell's sub-voxel geometry, which decides which 128 of ~650 members
+# a held-out tile keeps (scripts/torch_gate_witness.py --splat at the
+# 1080×1920 camera). Readings: the JAX package 8.937–10.703 dB over session
+# seeds 12, 0, 1, 2; the port 14.511–14.755 dB on the host and
+# 9.612–15.125 dB on the H100; the unfitted scene 9.94–9.98 dB in both. The
+# view cannot tell a fitted scene from an unfitted one here, so the floor
+# sits below every reading and catches a broken render; the fit is held by
+# the training views' mean.
+HELDOUT_FLOOR_DB = 8.0
+
+
+def splat_params(merge_params, **small):
+    """Bench config 12 as written (bench.py:992-1000): the sequential
+    finalize, ``view_cap`` as the ring's, 131,072 model slots, no mesh
+    previews, the ``"splat"`` lane on a grid-depth-8 TSDF of 16,384 bricks,
+    16,384 splats fitted 200 Adam steps against 8 frames; ``small``
+    overrides fields for the small rig."""
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        StreamParams,
+    )
+
+    kw = dict(method="sequential", view_cap=16_384, model_cap=131_072,
+              preview_every=0, final_depth=10, representation="splat",
+              tsdf_grid_depth=8, tsdf_max_bricks=16_384, splat_cap=16_384,
+              splat_fit_iters=200, splat_max_frames=8)
+    kw.update(small)
+    return StreamParams(merge=merge_params, **kw)
+
+
+def heldout_view(sess, stack, calib, proj, label: int):
+    """Stop ``label``'s predicted camera at the fit resolution, its render
+    config, and that stop's captured, decode-valid RGB as the target and
+    mask (bench config 12's quality gate renders this view)."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_render as sr,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.splat import (
+        fit as splat_fit,
+    )
+
+    mesher = sess.previewer
+    _, cols, vals = scan360.decode_stop(stack, calib, proj.col_bits,
+                                        proj.row_bits)
+    h, w = stack.shape[1:]
+    target, mask = splat_fit.frame_target(cols.cpu().numpy(),
+                                          vals.cpu().numpy(), h, w,
+                                          mesher.stride)
+    fx, fy, cx, cy = mesher.intrinsics
+    s = float(mesher.stride)
+    cam = sr.stop_camera(sess._predict_pose(label), fx / s, fy / s, cx / s,
+                         cy / s)
+    cfg = sr.RenderConfig(width=target.shape[1], height=target.shape[0])
+    return cam, cfg, target, mask
+
+
+def splat_path(dev, ring):
+    """Bench config 12 on the headline ring: stops 0–22 through a
+    ``representation="splat"`` session's ``add_stop``, ``ensure_scene``
+    (seed on the fused shell + the appearance fit), one untimed render,
+    the 20-view orbit sweep at 384×288 and the held-out render from stop
+    23's predicted camera against the captured RGB; then the 8 buffered
+    training views, ``render_png`` decoded back and the scene through
+    ``to_bytes``/``from_bytes``. The held-out PSNR must reach
+    ``HELDOUT_FLOOR_DB`` and the training views must average 20 dB (bench
+    [12]'s gate is printed, met or not). The launch counters
+    are zeroed before and read after each step: the composite kernel must
+    not run in the fit and must run once per render after it. After the
+    counts are read, the kernel is held against its plain version on the
+    records of one sweep view and of the held-out view, and timed on both.
+    Returns its launch count (22) and the sweep view's error and timing."""
+    import statistics
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.png import (
+        decode_png,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
+        decode,
+        marching_classify,
+        nn,
+        poisson_matvec,
+        splat_composite,
+        tsdf_combine,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_render as sr,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.splat import (
+        SplatScene,
+        psnr,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+    )
+
+    counters = {"decode_maps": decode.decode_maps,
+                "nearest_one": nn.nearest_one,
+                "matvec_band": poisson_matvec.matvec_band,
+                "classify_cells": marching_classify.classify_cells,
+                "tsdf_combine": tsdf_combine.tsdf_combine,
+                "brick_knn_cells": brickknn_kernel.brick_knn_cells,
+                "composite_cells": splat_composite.composite}
+
+    def zero():
+        _sync(dev)
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        _sync(dev)
+        return {name: fn.launches for name, fn in counters.items()}
+
+    proj, calib, stacks = ring["proj"], ring["calib"], ring["stacks"]
+    sp = splat_params(merge.MergeParams(voxel_size=3.0,
+                                        final_max_points=131_072,
+                                        step_deg=STEP_DEG))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    t0 = time.perf_counter()
+    sess = IncrementalSession(calib, proj.col_bits, proj.row_bits, params=sp,
+                              scan_id="smoke-splat", device=dev)
+    skipped = []
+    for k in range(HELD_OUT):
+        r = sess.add_stop(stacks[k])
+        if not r.fused:
+            skipped.append((k, r.reason, round(r.overlap or 0.0, 5)))
+    stops_s = time.perf_counter() - t0
+    ingest = read()
+    mesher = sess.previewer
+
+    zero()
+    t0 = time.perf_counter()
+    scene = mesher.ensure_scene()
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    build = read()
+
+    zero()
+    t0 = time.perf_counter()
+    mesher.render_image(0.0, 20.0)                     # untimed warm-up
+    warm_s = time.perf_counter() - t0
+    per_view = []
+    for i in range(SPLAT_SWEEP):
+        t0 = time.perf_counter()
+        img = mesher.render_image(360.0 * i / SPLAT_SWEEP, 20.0)
+        per_view.append(time.perf_counter() - t0)
+    h_cam, h_cfg, h_target, h_mask = heldout_view(
+        sess, stacks[HELD_OUT], calib, proj, HELD_OUT)
+    psnr_db = psnr(scene.render_camera(h_cam, h_cfg)[0], h_target, h_mask)
+    renders = read()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    # The kernel on this path's own records, after its counts were read:
+    # one sweep view and the held-out view, against the plain version, and
+    # timed (the sweep view's numbers go into the kernels line).
+    s_cfg = sr.RenderConfig(width=img.shape[1], height=img.shape[0])
+    path_err, timing = 0.0, None
+    for label, cam, cfg in (
+            ("splat path, sweep view 0", scene.camera(0.0, 20.0, s_cfg.width,
+                                                      s_cfg.height), s_cfg),
+            (f"splat path, held-out stop {HELD_OUT}", h_cam, h_cfg)):
+        recs, x0, y0 = sr._tile_records(
+            scene.means, scene.normals, scene.log_scales, scene.colors_sh,
+            scene.opacity, scene.valid, *sr.camera_tensors(cam, dev), cfg)
+        path_err = max(path_err, composite_agrees(recs, x0, y0, cfg.tile,
+                                                  label))
+        t = composite_timing(recs, x0, y0, cfg.tile, label)
+        timing = timing or t
+
+    train = []
+    for (target, mask), cam in zip(mesher._frames, mesher._cams):
+        cfg = sr.RenderConfig(width=target.shape[1], height=target.shape[0])
+        train.append(psnr(scene.render_camera(cam, cfg)[0], target, mask))
+    train_db = float(np.mean(train))
+    empty_db = psnr(np.broadcast_to(np.asarray(h_cfg.bg, np.float32) / 255.0,
+                                    h_target.shape), h_target, h_mask)
+    png, meta = mesher.render_png(45.0, 20.0)
+    png_same = bool(np.array_equal(decode_png(png),
+                                   mesher.render_image(45.0, 20.0)))
+    clone = SplatScene.from_bytes(scene.to_bytes(), device=dev)
+    bytes_same = bool(np.array_equal(clone.render(40.0, 10.0),
+                                     scene.render(40.0, 10.0)))
+    st = scene.fit_stats
+    vol = mesher.volume.stats()
+    view_s = statistics.median(per_view)
+    print(f"session splat: {sess.stops_fused} stops fused, "
+          f"{sess.stops_skipped} skipped {skipped}; stops wall "
+          f"{stops_s:.3f} s; {len(mesher._frames)} frames buffered at "
+          f"stride {mesher.stride} ({mesher._frames[0][1].shape[1]}x"
+          f"{mesher._frames[0][1].shape[0]}); volume {vol['bricks']} bricks; "
+          f"kernel launches {ingest}", flush=True)
+    print(f"session splat: ensure_scene (seed + fit) {build_s:.3f} s: "
+          f"{scene.n_splats} splats of {scene.capacity}, fit loss "
+          f"{st['fit_loss_first']} -> {st['fit_loss_last']} in "
+          f"{st['fit_iters']} steps over {st['fit_frames']} frames, fit "
+          f"{st['fit_seconds']} s; kernel launches {build}", flush=True)
+    print(f"session splat: first render {warm_s:.4f} s, then "
+          f"{SPLAT_SWEEP} orbit views at {img.shape[1]}x{img.shape[0]} "
+          f"median {view_s:.4f} s (min {min(per_view):.4f}, max "
+          f"{max(per_view):.4f}); held-out stop {HELD_OUT} PSNR "
+          f"{psnr_db:.3f} dB; peak device memory {peak / 2**30:.2f} GiB; "
+          f"kernel launches {renders}", flush=True)
+    print(f"session splat: the {len(train)} buffered training views "
+          f"{[round(t, 3) for t in train]} dB, mean {train_db:.3f} dB; "
+          f"bench [12]'s {PSNR_GATE_DB:.0f} dB held-out gate "
+          f"{'met' if psnr_db >= PSNR_GATE_DB else 'NOT met'} "
+          f"({psnr_db:.3f} dB; held to {HELDOUT_FLOOR_DB} dB; a render of "
+          f"the background alone reads {empty_db:.3f} dB)", flush=True)
+    print(f"session splat: render_png {len(png)} bytes decodes to the "
+          f"render: {png_same}; scene npz {len(scene.to_bytes())} bytes "
+          f"renders the same pixels after from_bytes: {bytes_same}",
+          flush=True)
+    if ingest["composite_cells"] != 0 or build["composite_cells"] != 0:
+        fail(f"session splat: composite_cells launched "
+             f"{ingest['composite_cells']} times while ingesting and "
+             f"{build['composite_cells']} in the fit (want 0 and 0)")
+    if ingest["decode_maps"] != HELD_OUT \
+            or ingest["tsdf_combine"] != sess.stops_fused \
+            or ingest["nearest_one"] <= 0:
+        fail(f"session splat: ingest launches {ingest}")
+    want = 2 + SPLAT_SWEEP
+    if renders["composite_cells"] != want:
+        fail(f"session splat: composite_cells launched "
+             f"{renders['composite_cells']} times, not one per render "
+             f"({want})")
+    if scene.n_splats < 0.5 * scene.capacity:
+        fail(f"session splat: only {scene.n_splats} splats seeded")
+    if not st["fit_loss_last"] < st["fit_loss_first"]:
+        fail("session splat: the fit did not lower its loss")
+    if img.shape != (288, 384, 3):
+        fail(f"session splat: a view of shape {img.shape}")
+    if not psnr_db >= HELDOUT_FLOOR_DB:
+        fail(f"session splat: held-out PSNR {psnr_db:.3f} dB below "
+             f"{HELDOUT_FLOOR_DB} dB")
+    if not train_db >= PSNR_GATE_DB:
+        fail(f"session splat: the training views average {train_db:.3f} "
+             f"dB, below {PSNR_GATE_DB:.0f} dB")
+    if not (png_same and bytes_same and meta["splats"] == scene.n_splats):
+        fail("session splat: the PNG or the npz round trip changed the "
+             "render")
+    return renders["composite_cells"], dict(max_abs_err=path_err, **timing)
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the cleanup path on one capture-size stop with its wall
 # ---------------------------------------------------------------------------
 
@@ -1250,6 +1730,7 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
         brickknn_kernel,
         marching_classify,
         poisson_matvec,
+        splat_composite,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
         make_calibration,
@@ -1267,7 +1748,8 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
     calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
     counters = {"brick_knn_cells": brickknn_kernel.brick_knn_cells,
                 "matvec_band": poisson_matvec.matvec_band,
-                "classify_cells": marching_classify.classify_cells}
+                "classify_cells": marching_classify.classify_cells,
+                "composite_cells": splat_composite.composite}
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1359,6 +1841,9 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
         fail(f"cleanup: matvec_band {launches['matvec_band']} launches (want"
              f" 1 + {solve.get('cg_iters_used')}), classify_cells "
              f"{launches['classify_cells']} (want 1)")
+    if launches["composite_cells"] != 0:
+        fail(f"cleanup: composite_cells launched "
+             f"{launches['composite_cells']} times: the path renders nothing")
     if len(mesh.faces) <= 10_000 or len(back.faces) != len(mesh.faces):
         fail(f"cleanup: the mesh has {len(mesh.faces)} faces, "
              f"{len(back.faces)} read back")
@@ -1557,8 +2042,62 @@ def small_rig_agreement(dev) -> None:
     if abs(len(a.faces) - len(b.faces)) > 0.03 * len(b.faces) or med > 0.25:
         fail(f"the mesh on {dev.type} disagrees with the host run")
     small_rig_stream(dev, stacks, rig, proj)
+    small_rig_splat(dev, stacks, rig, proj)
     small_rig_brick_ring(dev, stacks, rig, proj, params)
     small_rig_cleanup(dev, rig, proj, scene)
+
+
+def small_rig_splat(dev, stacks, rig, proj) -> None:
+    """A 4-stop splat session on the small rig, on the card and on the host
+    (the plain composite), compared by outcome: equal splat counts, and
+    the PSNR of the render from the first stop's camera against its frame
+    within 0.5 dB."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_render as sr,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.splat import (
+        psnr,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+    )
+
+    h, w = stacks.shape[2:]
+    sp = splat_params(
+        merge.MergeParams(voxel_size=6.0, ransac_iterations=2048,
+                          icp_iterations=20, fpfh_max_nn=32, normals_k=12,
+                          max_points=2048, posegraph_iterations=20,
+                          step_deg=10.0, final_max_points=4096),
+        view_cap=8192, model_cap=32_768, window=3, final_depth=8,
+        tsdf_grid_depth=6, tsdf_max_bricks=1024, splat_cap=4096,
+        splat_fit_iters=40)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        calib = make_calibration(*rig, h, w, proj.width, proj.height,
+                                 device=d)
+        sess = IncrementalSession(calib, proj.col_bits, proj.row_bits,
+                                  params=sp, device=d)
+        for k in range(stacks.shape[0]):
+            sess.add_stop(stacks[k])
+        mesher = sess.previewer
+        scene = mesher.ensure_scene()
+        target, mask = mesher._frames[0]
+        cfg = sr.RenderConfig(width=target.shape[1], height=target.shape[0])
+        img, _ = scene.render_camera(mesher._cams[0], cfg)
+        out[d.type] = (scene.n_splats, psnr(img, target, mask))
+    (n_d, p_d), (n_c, p_c) = out[dev.type], out["cpu"]
+    print(f"small rig splat session, {dev.type} vs cpu: {n_d} vs {n_c} "
+          f"splats, stop-0 view PSNR {p_d:.3f} vs {p_c:.3f} dB", flush=True)
+    if n_d != n_c or abs(p_d - p_c) > 0.5:
+        fail(f"the splat session on {dev.type} disagrees with the host run")
 
 
 def small_rig_brick_ring(dev, stacks, rig, proj, params) -> None:
@@ -1726,12 +2265,18 @@ def main() -> int:
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
                check_matvec(dev, band), check_classify(dev, band),
-               check_combine(dev), check_brick_knn(dev)]
+               check_combine(dev), check_brick_knn(dev),
+               check_composite(dev)]
     del band
     if args.kernels_only:
         return 0
     launches, ring = main_path(dev, N_STOPS, profile=args.profile)
     launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
+    launches["composite_cells"], on_path = splat_path(dev, ring)
+    composite = kernels[-1]
+    on_path["max_abs_err"] = max(on_path["max_abs_err"],
+                                 composite["max_abs_err"])
+    composite.update(on_path)
     del ring
     launches["brick_knn_cells"] = cleanup_path(dev)
     small_rig_agreement(dev)

@@ -60,6 +60,27 @@ class TSDFVolume:
         origin, voxel = fit_bounds(lo, hi, params, pad_frac=pad_frac)
         return cls(params, origin, voxel, device=device)
 
+    @classmethod
+    def from_arrays(cls, params: tsdf_ops.TSDFParams, origin, voxel_size,
+                    dir_map, tsdf, weight, rgb, brick_coords, n_bricks,
+                    device=None) -> "TSDFVolume":
+        """A volume holding the given state (host arrays in the
+        :class:`~..ops.tsdf.TSDFState` layout — another package's volume,
+        say) on ``device`` (None means the card)."""
+        vol = cls(params, origin, voxel_size, device=device)
+
+        def t(a, dtype):
+            return torch.as_tensor(np.array(a), device=vol.device).to(
+                dtype).contiguous()
+
+        vol._state = tsdf_ops.TSDFState(
+            dir_map=t(dir_map, torch.int32), tsdf=t(tsdf, torch.float32),
+            weight=t(weight, torch.float32), rgb=t(rgb, torch.float32),
+            brick_coords=t(brick_coords, torch.int32),
+            n_bricks=t(n_bricks, torch.int32).reshape(()))
+        vol.n_bricks = vol.n_wanted = int(vol._state.n_bricks)
+        return vol
+
     @property
     def state(self) -> tsdf_ops.TSDFState:
         return self._state

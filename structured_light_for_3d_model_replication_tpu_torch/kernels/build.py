@@ -29,7 +29,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math and no -ftz=true: classify compares against iso with
 # gradual underflow, and matvec, the TSDF combine and the brick KNN round op
-# by op (true division included) like their plain versions.
+# by op (true division included) like their plain versions; the splat
+# composite keeps the accurate expf.
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
           "-v")
 
@@ -52,6 +53,9 @@ _SIGNATURES = {
                         ctypes.c_float, _P),
     # bricks, nbr, nnb, cells, k, exclude_self, out_d, out_i, stream
     "sl_brick_knn": (_P, _P, _P, _L, _I, _I, _P, _P, _P),
+    # u, v, ca, cb, cc, cr, cg, cbl, opa, ok, x0, y0, rgb_out, a_out, nt, k,
+    # tile, stream
+    "sl_composite_cells": (*(_P,) * 14, _L, _L, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -87,17 +87,32 @@ class PreviewMesher:
 def make_previewer(params, device=None):
     """StreamParams → the session's previewer: the incremental TSDF mesher
     for ``"tsdf"`` and ``"archival"`` (whose previews are the same TSDF
-    lane), the coarse-Poisson re-solver for ``"poisson"``. Both share the
-    ``__call__(model_pts, model_valid) -> TriangleMesh`` contract."""
-    if params.representation in ("tsdf", "archival"):
+    lane), the splat appearance lane for ``"splat"`` (``splat/preview.py``
+    — the TSDF mesher plus rendered novel views), the coarse-Poisson
+    re-solver for ``"poisson"``. All share the ``__call__(model_pts,
+    model_valid) -> TriangleMesh`` contract."""
+    if params.representation in ("tsdf", "splat", "archival"):
         from ..fusion.preview import TSDFPreviewMesher
         from ..ops.tsdf import TSDFParams
 
         tparams = TSDFParams(grid_depth=params.tsdf_grid_depth,
                              max_bricks=params.tsdf_max_bricks)
+        hint = params.tsdf_voxel_scale * params.merge.voxel_size
+        if params.representation == "splat":
+            from ..splat.model import SplatParams
+            from ..splat.preview import SplatPreviewMesher
+
+            return SplatPreviewMesher(
+                voxel_size_hint=hint, params=tparams,
+                splat_params=SplatParams(capacity=params.splat_cap),
+                fit_iters=params.splat_fit_iters,
+                max_frames=params.splat_max_frames,
+                fit_pixels=params.splat_fit_pixels,
+                render_sizes=params.splat_render_sizes,
+                quantile_trim=params.preview_trim, device=device)
         return TSDFPreviewMesher(
-            voxel_size_hint=params.tsdf_voxel_scale * params.merge.voxel_size,
-            params=tparams, quantile_trim=params.preview_trim, device=device)
+            voxel_size_hint=hint, params=tparams,
+            quantile_trim=params.preview_trim, device=device)
     return PreviewMesher(points=params.preview_points,
                          depth=params.preview_depth,
                          quantile_trim=params.preview_trim)

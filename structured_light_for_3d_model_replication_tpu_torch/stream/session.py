@@ -18,8 +18,11 @@ The batch pipeline's math, re-staged so each stop is consumed when it lands:
   fixed-capacity running model; in the TSDF lanes it is also integrated into
   the brick-pool volume (one ``csrc/combine.cu`` launch on the card);
 * **preview** — a mesh of what the session holds after every stop: a
-  coloured TSDF extraction (``"tsdf"``, ``"archival"``) or a coarse Poisson
-  re-solve warm-started from the previous one (``"poisson"``).
+  coloured TSDF extraction (``"tsdf"``, ``"archival"``, ``"splat"``) or a
+  coarse Poisson re-solve warm-started from the previous one
+  (``"poisson"``). The ``"splat"`` lane also buffers each stop's dense RGB
+  frame for the appearance tier (``splat/``), whose scene is seeded and
+  fitted lazily, when a render is asked for.
 
 A covisibility gate skips redundant stops before they cost registration: a
 camera-frame test against the previous accepted stop (a stuck turntable)
@@ -30,7 +33,7 @@ the final mesh, optionally on a pipelined worker.
 
 Where the JAX package records flight-recorder events and trace spans, the
 port logs records with the same event names and fields
-(:func:`..health.emit`). ``representation="splat"`` is not ported yet.
+(:func:`..health.emit`).
 """
 
 from __future__ import annotations
@@ -49,7 +52,6 @@ from ..io import ply as ply_io
 from ..models import merge as merge_mod
 from ..models import scan360 as scan360_mod
 from ..ops import pointcloud, posegraph, registration
-from ..ops.poisson_sparse import _not_ported
 from ..ops.triangulate import Calibration
 from .preview import make_previewer
 
@@ -60,9 +62,9 @@ emit = health_mod.emit
 @dataclasses.dataclass(frozen=True)
 class StreamParams:
     """Streaming knobs on top of the batch merge parameters (the JAX
-    package's fields and defaults, less the splat tier's, the free-space
-    carving knob and the per-edge key schedule: each edge's generator is
-    seeded from (seed, edge index), so no schedule is needed)."""
+    package's fields and defaults, less the free-space carving knob and the
+    per-edge key schedule: each edge's generator is seeded from (seed, edge
+    index), so no schedule is needed)."""
 
     merge: merge_mod.MergeParams = merge_mod.MergeParams()
     method: str = "posegraph"           # finalize pose solve
@@ -89,12 +91,20 @@ class StreamParams:
     preview_trim: float = 0.05
     # "tsdf" (default): TSDF previews and a coloured TSDF final mesh;
     # "archival": TSDF previews, watertight Poisson final; "poisson":
-    # coarse Poisson previews that warm-start the Poisson final. "splat"
-    # (the appearance tier) is not ported yet.
+    # coarse Poisson previews that warm-start the Poisson final; "splat":
+    # the TSDF lane plus the Gaussian appearance tier (splat/), rendered
+    # novel views fitted from the per-stop RGB, and a TSDF final mesh.
     representation: str = "tsdf"
     tsdf_voxel_scale: float = 2.0       # TSDF voxel = scale × merge voxel
     tsdf_grid_depth: int = 8
     tsdf_max_bricks: int = 4096
+    # -- splat appearance tier (representation="splat") -------------------
+    splat_cap: int = 8192               # splat slots on the TSDF shell
+    splat_fit_iters: int = 40           # Adam steps per lazy scene build
+    splat_max_frames: int = 8           # RGB frames kept for the fit
+    splat_fit_pixels: int = 12288       # fit-resolution pixel budget
+    # Allowed render resolutions (W, H); the first is the default.
+    splat_render_sizes: tuple = ((384, 288),)
     # -- finalize ---------------------------------------------------------
     final_depth: int = 8
     final_trim: float = 0.0
@@ -227,10 +237,8 @@ class IncrementalSession:
         if params.method not in ("sequential", "posegraph"):
             raise ValueError(f"method must be 'sequential' or 'posegraph', "
                              f"got {params.method!r}")
-        if params.representation == "splat":
-            raise _not_ported("representation='splat' (the appearance tier)",
-                              "step 7 (appearance tier)")
-        if params.representation not in ("poisson", "tsdf", "archival"):
+        if params.representation not in ("poisson", "tsdf", "splat",
+                                          "archival"):
             raise ValueError(f"representation must be 'poisson', 'tsdf', "
                              f"'splat' or 'archival', got "
                              f"{params.representation!r}")
@@ -309,15 +317,19 @@ class IncrementalSession:
         pts, cols, vals = scan360_mod.decode_stop(
             stack, self.calib, self.col_bits, self.row_bits,
             decode_cfg=self.decode_cfg, tri_cfg=self.tri_cfg)
-        return self.add_decoded(pts, cols, vals, stop=stop)
+        return self.add_decoded(pts, cols, vals, stop=stop,
+                                frame_shape=stack.shape[1:3])
 
     def add_decoded(self, points, colors, valid, stop: int | None = None,
-                    coverage: float | None = None) -> StopResult:
+                    coverage: float | None = None,
+                    frame_shape: tuple | None = None) -> StopResult:
         """Fuse one stop's decoded dense arrays: ``points`` (P, 3) float32,
         ``colors`` (P, 3), ``valid`` (P,) bool. ``stop`` is the physical
         stop label (strictly increasing; defaults to the next index) —
         label gaps bridge like the batch degraded ring. ``coverage``
-        overrides the plain ``mean(valid)``."""
+        overrides the plain ``mean(valid)``. ``frame_shape`` (H, W) lets
+        the ``"splat"`` lane buffer the stop's RGB frame for the appearance
+        fit; without it the stop only fuses."""
         if self._finalized:
             raise health_mod.StopQualityError(
                 f"session {self.scan_id} is finalized")
@@ -328,12 +340,14 @@ class IncrementalSession:
                 f"after {self._next_label - 1}")
         self._next_label = label + 1
         t0 = time.monotonic()
-        res = self._ingest(label, points, colors, valid, coverage)
+        res = self._ingest(label, points, colors, valid, coverage,
+                           frame_shape)
         res.seconds = time.monotonic() - t0
         return res
 
     def _ingest(self, label: int, points, colors, valid,
-                coverage: float | None = None) -> StopResult:
+                coverage: float | None = None,
+                frame_shape: tuple | None = None) -> StopResult:
         p = self.params
         mp = p.merge
         dev = self.device
@@ -410,6 +424,14 @@ class IncrementalSession:
 
         # -- fuse into the running model ------------------------------------
         moved = self._fuse(sub_pts, sub_col, sub_val)
+        if p.representation == "splat" and frame_shape is not None:
+            # Appearance supervision (splat/preview.py): the stop's dense
+            # RGB + valid mask and its registered pose join the fit buffer
+            # — one strided subsample, no fit on the ingest path (the fit
+            # is lazy, at render time). The stored pose is the stop's
+            # at-ingest estimate.
+            self._mesher.observe_frame(points, colors, valid,
+                                       self._poses[-1], frame_shape)
         if p.covis:
             voxel = self._covis_voxel()
             self._prev_cam_voxels = _voxel_keys(reg_np, voxel)
@@ -553,7 +575,7 @@ class IncrementalSession:
                         p.model_cap, n_model)
         self._model_points = min(n_model, p.model_cap)
         moved_np = moved.cpu().numpy()
-        if p.representation in ("tsdf", "archival"):
+        if p.representation in ("tsdf", "splat", "archival"):
             # Incremental TSDF integration: the stop's pose-transformed view
             # fuses into the persistent volume here, so the preview is a
             # pure extraction. The camera centre in the model frame is the
@@ -602,10 +624,10 @@ class IncrementalSession:
                  overlap: bool = True) -> FinalizeResult:
         """Close the ring — loop-closure edge (``posegraph``), axis-prior
         re-pass (clean rings) or edge gates, full pose solve, merge of every
-        retained stop view — and build the final mesh (``"tsdf"``: the
-        coloured TSDF of the final cloud; ``"archival"``/``"poisson"``: the
-        watertight Poisson solve at ``final_depth``, the latter warm-started
-        from the last preview). ``overlap=True`` runs the mesh on a
+        retained stop view — and build the final mesh (``"tsdf"`` and
+        ``"splat"``: the coloured TSDF of the final cloud;
+        ``"archival"``/``"poisson"``: the watertight Poisson solve at
+        ``final_depth``, the latter warm-started from the last preview). ``overlap=True`` runs the mesh on a
         pipelined worker while the finalize tail runs, and joins before
         returning (``stats["overlap"]`` has the window)."""
         if self._finalized:
@@ -703,11 +725,14 @@ class IncrementalSession:
                     x0 = self._mesher.last_chi
                 elif p.final_depth > 8:
                     x0 = self._mesher.last_grid
+            # The splat lane's geometry is the TSDF volume: its final mesh
+            # is the coloured TSDF extraction. Archival = TSDF previews,
+            # Poisson final artifact.
+            mesh_rep = {"splat": "tsdf", "archival": "poisson"}.get(
+                p.representation, p.representation)
             mesh_kw = dict(
                 mode="watertight", depth=p.final_depth,
-                quantile_trim=p.final_trim,
-                representation=("poisson" if p.representation == "archival"
-                                else p.representation),
+                quantile_trim=p.final_trim, representation=mesh_rep,
                 tsdf_max_bricks=p.tsdf_max_bricks, cg_x0=x0,
                 solve_stats=solve_stats, device=self.device)
             if overlap:

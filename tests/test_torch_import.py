@@ -60,7 +60,9 @@ def test_every_port_module_imports_without_jax():
     assert n_modules >= 20
     for name in ("ops.brickknn", "ops.brickknn_kernel", "ops.gridknn",
                  "ops.segmentation", "ops.cluster", "ops.features_brick",
-                 "io.layout"):
+                 "io.layout", "io.png", "ops.splat_render",
+                 "ops.splat_composite", "splat", "splat.model", "splat.fit",
+                 "splat.preview"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -72,8 +74,10 @@ def test_entry_modules_do_not_load_kernel_bindings():
         from {PORT}.ops import (brickknn, brickknn_kernel, cluster,
                                 features_brick, gridknn, pointcloud,
                                 segmentation)
-        from {PORT}.io import layout, ply
-        from {PORT} import fusion, stream
+        from {PORT}.io import layout, ply, png
+        from {PORT} import fusion, splat, stream
+        from {PORT}.ops import splat_composite, splat_render
+        from {PORT}.splat import fit, model, preview
         from {PORT}.stream import session
         loaded = [m for m in sys.modules if m.startswith("{PORT}.kernels")
                   or m == "triton"]
@@ -179,3 +183,55 @@ def test_cleanup_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert len(merge.remove_outliers(cloud, device="cpu")) > 250
     assert len(merge.remove_background(cloud, num_iterations=64,
                                        device="cpu")) < 300
+
+
+def test_composite_refuses_gradients_and_splat_entry_points_need_a_card(
+        monkeypatch):
+    """The composite kernel has no backward: its wrapper raises on inputs
+    that require gradients, on every device, instead of detaching them. The
+    splat entry points take ``device=None`` as the card and raise without
+    one; ``device="cpu"`` runs."""
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_composite,
+        splat_render,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.splat import (
+        SplatParams,
+        SplatScene,
+        splat_scene_from_cloud,
+    )
+
+    rec = torch.zeros((3, 5))
+    org = torch.zeros(3)
+    planes = [rec.clone() for _ in range(10)]
+    for i in (0, 5, 8):
+        grad = list(planes)
+        grad[i] = rec.clone().requires_grad_(True)
+        with pytest.raises(ValueError, match="requires grad"):
+            splat_composite.composite(*grad, org, org, 4)
+    with pytest.raises(ValueError, match="requires grad"):
+        splat_composite.composite(*planes, org.clone().requires_grad_(True),
+                                  org, 4)
+    assert splat_composite.composite(*planes, org, org, 4)[1].shape == (3,
+                                                                        16)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(2)
+    u = rng.normal(size=(600, 3)).astype(np.float32)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    arrays = (u, u, np.zeros((600, 3), np.float32),
+              np.zeros((600, 4, 3), np.float32), np.zeros(600, np.float32),
+              np.ones(600, bool))
+    cam = splat_render.orbit_camera(u.min(0), u.max(0), 0, 0, 32, 24)
+    cfg = splat_render.RenderConfig(32, 24)
+    for call in (lambda: splat_render.render(*arrays, cam, cfg),
+                 lambda: SplatScene.from_numpy(SplatParams(600), *arrays),
+                 lambda: splat_scene_from_cloud(PointCloud(points=u,
+                                                           normals=u))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    img, alpha = splat_render.render(*arrays, cam, cfg, device="cpu")
+    assert img.shape == (24, 32, 3) and float(alpha.max()) > 0.0

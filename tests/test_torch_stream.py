@@ -20,7 +20,12 @@ Tolerances:
   RANSAC streams differ), and the port's session against the port's batch
   ``method="posegraph"`` to 1e-3 (the JAX package's bar,
   tests/test_stream.py): the same per-edge generators, so on the CPU they
-  agree to the bit.
+  agree to the bit;
+* a 4-stop ``representation="splat"`` session at the JAX package's tiny
+  splat settings: stride, frame count and splat count equal to the JAX
+  session's, intrinsics to 1e-6, and the two renders of one orbit view
+  at ≥ 25 dB PSNR of each other (the poses differ within 0.5° by the RANSAC
+  streams, and the fits sum in another order).
 """
 
 import dataclasses
@@ -395,10 +400,15 @@ def test_session_parameter_checks(rig):
     with pytest.raises(ValueError, match="method"):
         IncrementalSession(calib, 8, 7, params=StreamParams(method="nope"),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="step 7"):
-        IncrementalSession(calib, 8, 7,
-                           params=StreamParams(representation="splat"),
-                           device="cpu")
+    # The splat lane is ported: its session takes the appearance previewer.
+    from structured_light_for_3d_model_replication_tpu_torch.splat import (
+        SplatPreviewMesher,
+    )
+
+    splat = IncrementalSession(calib, 8, 7,
+                               params=StreamParams(representation="splat"),
+                               device="cpu")
+    assert isinstance(splat.previewer, SplatPreviewMesher)
     with pytest.raises(NotImplementedError, match="step 8"):
         warm_session_programs()
     with pytest.raises(NotImplementedError, match="step 5"):
@@ -561,3 +571,58 @@ def test_covis_gate_matches_jax(case):
                            and decisions[k][0] >= 0.995 for k in skipped)
     assert min(skipped) >= 20, decisions          # only the ring's tail
     assert 0.98 <= decisions[min(skipped) - 1][0] < 0.995, decisions
+
+
+# JAX's tiny splat lane (tests/test_stream.py's service settings).
+SPLAT = dict(representation="splat", preview_every=0, splat_cap=2048,
+             splat_fit_iters=4, splat_fit_pixels=960,
+             splat_render_sizes=((96, 72),))
+
+
+def test_splat_session_matches_jax(rig):
+    """A tiny ``representation="splat"`` session on the 4-stop rig, in the
+    port and in the JAX package: both fuse the four stops, buffer four
+    frames at the same fit resolution, seed the same number of splats, and
+    their renders from one orbit view agree to ≥ 25 dB PSNR (the poses
+    differ by the RANSAC streams, within 0.5°, and the fit sums in another
+    order). The port's final mesh is the coloured TSDF one."""
+    from structured_light_for_3d_model_replication_tpu.splat.fit import (
+        psnr as jpsnr,
+    )
+
+    stacks, calib, mats = rig
+    jcal = jtri.make_calibration(*mats, CAM_H, CAM_W, SMALL_PROJ.width,
+                                 SMALL_PROJ.height)
+    jsess = JSession(jcal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
+                     params=JStreamParams(merge=jmerge.MergeParams(**FAST),
+                                          **STREAM, **SPLAT))
+    sess = IncrementalSession(calib, SMALL_PROJ.col_bits,
+                              SMALL_PROJ.row_bits,
+                              params=StreamParams(
+                                  merge=merge.MergeParams(**FAST), **STREAM,
+                                  **SPLAT), device="cpu")
+    for k in range(4):
+        assert jsess.add_stop(stacks[k]).fused
+        assert sess.add_stop(stacks[k]).fused
+    jm, m = jsess._mesher, sess.previewer
+    assert m.stride == jm.stride and m.frame_shape == jm.frame_shape
+    assert len(m._frames) == len(jm._frames) == 4
+    np.testing.assert_allclose(m.intrinsics, jm.intrinsics, rtol=1e-6)
+    assert m.render_image(30.0, 20.0) is not None
+    scene, jscene = m.ensure_scene(), jm.ensure_scene()
+    assert scene.n_splats == jscene.n_splats > 500
+    assert scene.fit_stats["fit_iters"] == 4
+    assert not m.scene_stale and m.stats()["frames_seen"] == 4
+    img = m.render_image(30.0, 20.0)
+    jimg = jm.render_image(30.0, 20.0)
+    assert img.shape == jimg.shape == (72, 96, 3)
+    quality = jpsnr(img / 255.0, jimg / 255.0)
+    assert quality >= 25.0, quality
+    data, meta = m.render_png(30.0, 20.0)
+    from structured_light_for_3d_model_replication_tpu_torch.io.png import (
+        decode_png,
+    )
+
+    assert np.array_equal(decode_png(data), img) and meta["splats"] > 500
+    fin = sess.finalize(mesh=True, overlap=False)
+    assert len(fin.mesh.faces) > 100 and fin.mesh.vertex_colors is not None
