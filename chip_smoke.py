@@ -8,6 +8,7 @@ the cleanup path of a single capture, with its CUDA kernels.
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
     python3 chip_smoke.py --profile        # full run + a profiled main path
+    python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -16,8 +17,11 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build of the CUDA kernels from ``csrc/`` (one ``nvcc -c`` per source, all
    started together, then one link), with its time;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and at ragged ones, then timed with CUDA events beside its
-   bound, its plain version and, where one exists, a library yardstick;
+   paths' shapes and at ragged ones (``nearest_one`` and ``matvec_band``
+   bit for bit), then timed beside its bound, its plain version and, where
+   one exists, a library yardstick: with CUDA events, and by the profiler
+   where the kernel is shorter than its wrapper's host work (the composite,
+   ``nearest_one`` and ``matvec_band`` print both);
 4. the main path at full size — 24 stops × 15°, 1080×1920 camera, 1920×1080
    projector, 46 frames (the repository's headline 360° configuration) —
    through ``scan_stacks_to_cloud``, then ``mesh_360`` of the merged cloud
@@ -25,7 +29,14 @@ Phases, in order; any failure exits non-zero before the result line:
    with its kernels' launch counters zeroed before and read after; stage
    times, peak memory, the merged cloud and every pose against the
    commanded turntable angle, the band, the CG iterations, the mesh against
-   the scene's analytic surface and the STL read back;
+   the scene's analytic surface and the STL read back. Each half then runs
+   again on the same inputs (the mesh from the first run's merged cloud)
+   and must repeat bit for bit: poses, merged points, colours and normals,
+   the CG iteration count, the launch counts, mesh vertices and faces; a
+   run whose results differ fails. ``nearest_one`` is then checked and
+   timed on the 360° path's own sweeps, by shape, and ``matvec_band`` on
+   the mesh path's own band (``scripts/torch_compare_trees.py`` times two
+   trees of the port against each other with the same helpers);
 5. the streaming path on the same 24-stop ring through
    ``IncrementalSession.add_stop`` ×24 → ``finalize(overlap=True)``:
    session T in the default ``"tsdf"`` lane (TSDF previews after every stop,
@@ -69,6 +80,7 @@ directory.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -81,6 +93,9 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # non-tensor fp32, H100 SXM data sheet
 NN_FLOPS_PER_PAIR = 8          # 3 sub, 3 mul, 2 add
+# Unfused, as bit-equality needs: 3 sub, 3 mul, 2 add, a compare, 2 selects.
+NN_INSTR_PER_PAIR = 11
+H100_FP32_LANE_OPS = H100_FP32_FLOPS / 2   # instructions/s: an FMA is 2 FLOP
 # The splat composite per live (pixel, record) pair: 11 for the conic, 4 and
 # an expf for alpha, 10 for the fold (csrc/composite.cu).
 COMPOSITE_FLOPS_PER_PAIR = 25
@@ -122,14 +137,17 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device milliseconds per launch of the CUDA kernel whose name
-    holds ``kernel``, over at least ``reps`` of its launches recorded by
-    ``torch.profiler``: for a kernel shorter than its wrapper's host work,
-    where CUDA events around a loop of calls time the host. ``fn`` runs
-    twice ``reps`` times under the profiler, which can miss launches (it
-    once recorded 185 of 200 on the splat path's records); every launch
-    does the same work, so the mean over those recorded stands for all."""
+def profile_calls(fn, reps: int, kernels=None) -> tuple[float, dict]:
+    """Device milliseconds per call of ``fn``, by ``torch.profiler``: for
+    a kernel shorter than its wrapper's host work, where CUDA events around
+    a loop of calls time the host. ``kernels`` are name fragments of the
+    kernels one call launches (``None``: every kernel recorded); the
+    result is the sum of their mean spans, each times its launches a call.
+    ``fn`` runs twice ``reps`` times under the profiler, which can miss
+    launches (it once recorded 185 of 200 on the splat path's records);
+    every launch of one kernel does the same work, so the mean over those
+    recorded stands for all. Also returns every CUDA kernel the profiler
+    recorded over those calls, by name, with its count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -140,14 +158,89 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(2 * reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    print(f"  profiler: {len(spans)} of {2 * reps} launches of {kernel} "
-          f"recorded", flush=True)
-    if len(spans) < reps:
-        fail(f"the profiler recorded {len(spans)} launches of {kernel}, "
-             f"fewer than {reps}")
-    return sum(spans) / len(spans) / 1e3
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
+    total_us = 0.0
+    for kernel in spans if kernels is None else kernels:
+        got = [t for name, ts in spans.items() if kernel in name for t in ts]
+        print(f"  profiler: {len(got)} of {2 * reps} calls' launches of "
+              f"{kernel[:60]} recorded", flush=True)
+        if len(got) < reps:
+            fail(f"the profiler recorded {len(got)} launches of {kernel}, "
+                 f"fewer than {reps}")
+        total_us += sum(got) / len(got) * max(1, round(len(got) / (2 * reps)))
+    return total_us / 1e3, {name: len(ts) for name, ts in spans.items()}
+
+
+@contextlib.contextmanager
+def sweep_tally():
+    """While open, registration's correspondence sweep (``_nn1``, the only
+    caller of ``nearest_one``) is tallied by shape: the yielded dict maps
+    (queries, keys) to (sweeps, the first sweep's operands (q, keys_t,
+    p2v))."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        nn,
+        registration,
+    )
+
+    sweeps = {}
+    real = registration._nn1
+
+    def tallied(moved, dst_pts, dst_valid, src_valid, table=None):
+        if table is None:
+            table = nn.key_table(dst_pts, dst_valid)
+        key = (moved.shape[0], table[0].shape[1])
+        count, first = sweeps.get(key, (0, (moved.contiguous(), *table)))
+        sweeps[key] = (count + 1, first)
+        return real(moved, dst_pts, dst_valid, src_valid, table)
+
+    registration._nn1 = tallied
+    try:
+        yield sweeps
+    finally:
+        registration._nn1 = real
+
+
+@contextlib.contextmanager
+def cg_matvecs(dev):
+    """While open, ``poisson_sparse.matvec_band`` (the fine CG's operator:
+    once before its loop and once an iteration) is wrapped: the yielded
+    dict keeps the first call's operands under ``"band"`` (x, W, nbr,
+    block_valid) and, on the card, a CUDA event at every call under
+    ``"events"``, which :func:`cg_iteration_ms` reads after the run."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_sparse,
+    )
+
+    seen = {"band": None, "events": []}
+    real = poisson_sparse.matvec_band
+
+    def captured(x, W, nbr, bv):
+        if seen["band"] is None:
+            seen["band"] = (x, W, nbr, bv)
+        if dev.type == "cuda":
+            seen["events"].append(torch.cuda.Event(enable_timing=True))
+            seen["events"][-1].record()
+        return real(x, W, nbr, bv)
+
+    poisson_sparse.matvec_band = captured
+    try:
+        yield seen
+    finally:
+        poisson_sparse.matvec_band = real
+
+
+def cg_iteration_ms(events) -> float:
+    """Device milliseconds per CG iteration, from the first matvec's event
+    to the last (:func:`cg_matvecs`; the stream synchronized)."""
+    if len(events) < 2:
+        return float("nan")
+    return events[0].elapsed_time(events[-1]) / (len(events) - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -201,71 +294,120 @@ def check_decode(dev):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None)
 
 
+def nn_operands(dev, g, m: int, n: int, invalid: float,
+                twice: bool = False):
+    """m queries and n keys around z = 500 mm (a fraction ``invalid`` of
+    the keys masked off; ``twice``: the second half of the keys repeats
+    the first, so every query ties): (q, keys_t, p2v, points, valid)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import nn
+
+    q = torch.randn((m, 3), device=dev, generator=g) * 50 + 500
+    p = torch.randn((n - n // 2 if twice else n, 3), device=dev,
+                    generator=g) * 50 + 500
+    if twice:
+        p = torch.cat([p, p[:n // 2]])
+    valid = torch.rand((n,), device=dev, generator=g) >= invalid
+    kt, p2v = nn.key_table(p, valid)
+    return q, kt, p2v, p, valid
+
+
+def nn_timing(q, kt, p2v, label: str) -> dict:
+    """``nearest_one`` at one shape: its kernels' device time per call (the
+    profiler), the call's time with the wrapper (CUDA events), the kernels
+    one call launches (the profiler's record), its bound (8 operations per
+    pair with a valid key at the fp32 peak) and its issue-rate floor (11
+    fp32 instructions per pair, valid or not, at 128 lanes per SM)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import nn
+
+    calls = 200
+    ms, seen = profile_calls(lambda: nn.nearest_one(q, kt, p2v), calls,
+                             ("nn1",))
+    per_call = sum(seen.values()) / (2 * calls)
+    call_ms = cuda_ms(lambda: nn.nearest_one(q, kt, p2v), calls)
+    m, n = q.shape[0], kt.shape[1]
+    n_valid = int(torch.isfinite(p2v).sum())
+    flops = NN_FLOPS_PER_PAIR * m * n_valid
+    nbytes = 4 * (3 * m + 4 * n) + 12 * m
+    bound_ms = max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
+    floor_ms = NN_INSTR_PER_PAIR * m * n / H100_FP32_LANE_OPS * 1e3
+    print(f"nearest_one {label} {m}x{n} ({n_valid} valid keys): {ms:.4f} ms "
+          f"a call on the device, {call_ms:.4f} ms a call with the wrapper; "
+          f"kernels recorded over {2 * calls} calls {seen} ({per_call:.3f} "
+          f"a call); bound {bound_ms:.4f} ms (operations, "
+          f"{flops / 1e9:.3f} GFLOP), issue-rate floor {floor_ms:.4f} ms "
+          f"({NN_INSTR_PER_PAIR} fp32 instructions a pair)", flush=True)
+    if len(seen) != 1 or per_call > 1.0:
+        fail(f"nearest_one launched {seen} over {2 * calls} calls, not one "
+             "kernel a call")
+    return dict(ms=ms, call_ms=call_ms, bound_ms=bound_ms,
+                floor_ms=floor_ms)
+
+
 def check_nearest_one(dev):
+    """``nearest_one`` bit-equal to its plain version (d2's bits and idx,
+    ties to the lowest index, +inf and idx 0 without a valid key) at the
+    360° path's two shapes (2048 warm-up and 8192 queries against 8192
+    keys), a ragged shape, tables of 40,000 and 20,000 keys (several
+    shared-memory chunks a block, at two and four queries a lane), a table
+    whose every key appears twice, and a table with no valid key; then
+    timed at both path shapes."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import nn
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    max_err = 0.0
-    cases = (("8192x8192, 20% invalid", 8192, 8192, 0.2),
-             ("1500x1100, 20% invalid", 1500, 1100, 0.2),
-             ("64x128, all invalid", 64, 128, 1.0))
-    main = None
-    for label, m, n, invalid in cases:
-        q = torch.randn((m, 3), device=dev, generator=g) * 50 + 500
-        p = torch.randn((n, 3), device=dev, generator=g) * 50 + 500
-        valid = torch.rand((n,), device=dev, generator=g) >= invalid
-        kt, p2v = nn.key_table(p, valid)
+    cases = (("8192x8192, 20% invalid", 8192, 8192, 0.2, False),
+             ("2048x8192, 20% invalid", 2048, 8192, 0.2, False),
+             ("1500x1100, 20% invalid", 1500, 1100, 0.2, False),
+             ("1500x40000, 20% invalid", 1500, 40_000, 0.2, False),
+             ("16384x20000, 20% invalid", 16_384, 20_000, 0.2, False),
+             ("700x10000, every key twice", 700, 10_000, 0.0, True),
+             ("64x128, all invalid", 64, 128, 1.0, False))
+    shapes = {}
+    for label, m, n, invalid, twice in cases:
+        q, kt, p2v, p, valid = nn_operands(dev, g, m, n, invalid, twice)
         d2, idx = nn.nearest_one(q, kt, p2v)
         rd2, ridx = nn.nearest_one_reference(q, kt, p2v)
         torch.cuda.synchronize()
+        same = (torch.equal(d2.view(torch.int32), rd2.view(torch.int32))
+                and torch.equal(idx, ridx))
         finite = torch.isfinite(rd2)
-        if not torch.equal(finite, torch.isfinite(d2)):
-            fail(f"nearest_one {label}: +inf pattern differs")
-        if not bool(finite.any()):
-            if not bool((idx == 0).all()):
-                fail(f"nearest_one {label}: idx not 0 without valid keys")
-            print(f"nearest_one {label}: all d2 = +inf, idx = 0", flush=True)
-            continue
-        rel = ((d2[finite] - rd2[finite]).abs()
-               / rd2[finite].abs().clamp_min(1e-30))
-        err = float((d2[finite] - rd2[finite]).abs().max())
-        # A differing idx is allowed only where the two d2 tie (1e-6 rel).
-        flips = (idx != ridx) & finite
-        tie_ok = bool((rel[flips[finite]] <= 1e-6).all())
-        print(f"nearest_one {label}: max |d2 - plain| = {err:.3e}, max rel "
-              f"{float(rel.max()):.3e}, idx differs on {int(flips.sum())} "
-              f"rows (ties: {tie_ok}), valid keys {bool(valid[idx[finite]].all())}",
+        first = bool((idx < n // 2).all())
+        print(f"nearest_one {label}: d2 bits and idx equal to the plain "
+              f"version: {same} ({int(finite.sum())} rows with a valid key"
+              f"{f'; every idx in the first copy: {first}' if twice else ''})",
               flush=True)
-        if float(rel.max()) > 1e-6 or not tie_ok:
+        if not same:
             fail(f"nearest_one disagrees with its plain version ({label})")
         if not bool(valid[idx[finite]].all()):
             fail(f"nearest_one {label}: idx points at an invalid key")
-        max_err = max(max_err, err)
-        if main is None:
-            main = (q, kt, p2v, p, valid)
-    q, kt, p2v, p, valid = main
-    m, n_valid = q.shape[0], int(valid.sum())
-    ms = cuda_ms(lambda: nn.nearest_one(q, kt, p2v), 200)
+        if twice and not first:
+            fail(f"nearest_one {label}: a tie went past the lowest index")
+        if not bool(finite.any()) and not bool((idx == 0).all()):
+            fail(f"nearest_one {label}: idx not 0 without valid keys")
+        if n == 8192:
+            shapes[(m, n)] = (q, kt, p2v, p, valid)
+    q, kt, p2v, p, valid = shapes[(8192, 8192)]
+    main = nn_timing(q, kt, p2v, "(random keys)")
+    nn_timing(*shapes[(2048, 8192)][:3], "(random keys)")
     plain_ms = cuda_ms(lambda: nn.nearest_one_reference(q, kt, p2v), 20)
     pv = p[valid]
     lib_ms = cuda_ms(lambda: torch.cdist(q, pv).argmin(1), 20)
-    flops = NN_FLOPS_PER_PAIR * m * n_valid
-    nbytes = 4 * (3 * m + 4 * kt.shape[1]) + 12 * m
-    bound_ms = max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
-    print(f"nearest_one {m}x{kt.shape[1]} ({n_valid} valid keys): {ms:.4f} "
-          f"ms/launch, bound {bound_ms:.4f} ms (operations, "
-          f"{flops / 1e9:.3f} GFLOP), plain {plain_ms:.3f} ms, library "
+    print(f"nearest_one 8192x8192: plain {plain_ms:.3f} ms, library "
           f"torch.cdist(q, k).argmin(1) {lib_ms:.3f} ms", flush=True)
     return dict(name="nearest_one", route="cuda",
                 source="structured_light_for_3d_model_replication_tpu_torch/"
                        "csrc/nn1.cu",
                 replaces="structured_light_for_3d_model_replication_tpu/ops/"
                          "nn_pallas.py:99",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="operations", library_ms=lib_ms)
+                max_abs_err=0.0, ms=main["ms"], plain_ms=plain_ms,
+                bound_ms=main["bound_ms"], bound_by="operations",
+                library_ms=lib_ms)
 
 
 def sphere_band(dev):
@@ -291,7 +433,36 @@ def sphere_band(dev):
     return out[0], out[1], out[2], out[3]
 
 
+def matvec_timing(x, W, nbr, bv, label: str) -> dict:
+    """``matvec_band`` on one band: its kernel's device time (the
+    profiler), the call's time with the wrapper (CUDA events), its plain
+    version's and its byte bound."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_matvec as pm,
+    )
+
+    ms, _ = profile_calls(lambda: pm.matvec_band(x, W, nbr, bv), 50,
+                          ("matvec_band",))
+    call_ms = cuda_ms(lambda: pm.matvec_band(x, W, nbr, bv), 100)
+    plain_ms = cuda_ms(lambda: pm.matvec_band_reference(x, W, nbr, bv), 5)
+    m = x.shape[0]
+    n_valid = int(bv.sum())
+    # Valid brick: x, W read and out written; invalid brick: out written;
+    # every brick: nbr and block_valid read. Face halos hit L2.
+    nbytes = 3 * 2048 * n_valid + 2048 * (m - n_valid) + 25 * m
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"matvec_band {label} M={m} ({n_valid} valid): {ms:.4f} ms on the "
+          f"device, {call_ms:.4f} ms a call with the wrapper, bound "
+          f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB; "
+          f"{bound_ms / ms:.2f} of it), plain {plain_ms:.3f} ms, library "
+          f"yardstick: none", flush=True)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
 def check_matvec(dev, band):
+    """``matvec_band`` bit-equal to its plain version on the sphere band
+    (x = rhs and a random x) and on a ragged prefix with a tenth of its
+    bricks invalid; then timed on the band."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
@@ -310,36 +481,24 @@ def check_matvec(dev, band):
              ("band, random x", xr, W, nbr, bv),
              (f"first {mr} rows, 10% invalid, random x", xr[:mr], W[:mr],
               nbr[:mr], bvr))
-    max_err = 0.0
     for label, x, w, nb, v in cases:
         got = pm.matvec_band(x, w, nb, v)
         ref = pm.matvec_band_reference(x, w, nb, v)
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        print(f"matvec_band {label}: max |kernel - plain| = {err:.3e} "
-              f"(max |plain| {scale:.3e})", flush=True)
-        if not err <= 1e-6 * scale:
+        same = torch.equal(got, ref)
+        print(f"matvec_band {label}: equal to the plain version: {same} "
+              f"(max |kernel - plain| = {float((got - ref).abs().max()):.3e})",
+              flush=True)
+        if not same:
             fail(f"matvec_band disagrees with its plain version ({label})")
-        max_err = max(max_err, err)
-    m = rhs.shape[0]
-    n_valid = int(bv.sum())
-    ms = cuda_ms(lambda: pm.matvec_band(rhs, W, nbr, bv), 100)
-    plain_ms = cuda_ms(lambda: pm.matvec_band_reference(rhs, W, nbr, bv), 5)
-    # Valid brick: x, W read and out written; invalid brick: out written;
-    # every brick: nbr and block_valid read. Face halos hit L2.
-    nbytes = 3 * 2048 * n_valid + 2048 * (m - n_valid) + 25 * m
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"matvec_band M={m} ({n_valid} valid): {ms:.4f} ms/launch, bound "
-          f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), plain "
-          f"{plain_ms:.3f} ms, library yardstick: none", flush=True)
+    t = matvec_timing(rhs, W, nbr, bv, "sphere band")
     return dict(name="matvec_band", route="cuda",
                 source="structured_light_for_3d_model_replication_tpu_torch/"
                        "csrc/matvec.cu",
                 replaces="structured_light_for_3d_model_replication_tpu/ops/"
                          "poisson_pallas.py:130",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+                max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by="bytes", library_ms=None)
 
 
 def check_classify(dev, band):
@@ -745,8 +904,8 @@ def composite_timing(recs, x0, y0, tile: int, label: str) -> dict:
         splat_composite as sc,
     )
 
-    ms = device_ms(lambda: sc.composite(*recs, x0, y0, tile), 200,
-                   "composite_cells")
+    ms, _ = profile_calls(lambda: sc.composite(*recs, x0, y0, tile), 200,
+                          ("composite_cells",))
     call_ms = cuda_ms(lambda: sc.composite(*recs, x0, y0, tile), 200)
     plain_ms = cuda_ms(lambda: sc.composite_reference(*recs, x0, y0, tile),
                        20)
@@ -947,19 +1106,38 @@ def profile_run(run, top: int = 15) -> None:
         print(f"  {t / 1e3:9.2f} ms {n:6d}x  {name[:100]}", flush=True)
 
 
+def scan_params(step: float):
+    """The 360° path's settings: the JAX bench's headline ring
+    (``voxel_size=3.0``, ``view_cap=16_384``), sequential, six stops a
+    decode launch."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+        scan360,
+    )
+
+    return scan360.Scan360Params(
+        merge=merge.MergeParams(voxel_size=3.0, final_max_points=131_072,
+                                step_deg=step),
+        method="sequential", view_cap=16_384, stop_chunk=6)
+
+
 def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     """Drive ``scan_stacks_to_cloud`` once at full size (1920×1080
     projector unless ``proj`` says otherwise) and check what comes out;
-    with ``profile`` run it once more under the profiler. Returns the
-    launch counts and the rendered ring (stacks, calibration, projector,
-    scene) for the streaming phase."""
+    then run it again on the same stacks, which must give the same poses
+    and merged cloud bit for bit and the same launch counts (that run also
+    tallies the correspondence sweeps by shape and keeps the first sweep of
+    each shape); with ``profile`` run it once more under the profiler. The
+    mesh half (:func:`mesh_path`) follows. Returns the launch counts, the
+    rendered ring (stacks, calibration, projector, scene) for the streaming
+    phase, and the paths' kernel operands: ``{"nn": {(queries, keys):
+    (sweeps, operands)}, "matvec": (x, W, nbr, block_valid)}``."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.config import (
         ProjectorConfig,
     )
     from structured_light_for_3d_model_replication_tpu_torch.models import (
-        merge,
         pipeline,
         scan360,
     )
@@ -981,10 +1159,7 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     print(f"rendered {n_stops} stops x {stacks.shape[1]} frames at {h}x{w} "
           f"in {time.perf_counter() - t0:.1f} s (untimed set-up)", flush=True)
     calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
-    params = scan360.Scan360Params(
-        merge=merge.MergeParams(voxel_size=3.0, final_max_points=131_072,
-                                step_deg=step),
-        method="sequential", view_cap=16_384, stop_chunk=6)
+    params = scan_params(step)
 
     _sync(dev)
     if dev.type == "cuda":
@@ -1055,12 +1230,37 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
           f"{np.median(err):.3f} mm", flush=True)
     if valid.mean() < 0.05 or np.median(err) > 3.0:
         fail("stop 0 does not match the rendered ground truth")
+    # Repeatability: the same stacks again must give the same bits; that
+    # run tallies the correspondence sweeps by shape.
+    _sync(dev)
+    decode.decode_maps.launches = 0
+    nn.nearest_one.launches = 0
+    with sweep_tally() as sweeps:
+        merged2, poses2 = scan360.scan_stacks_to_cloud(
+            stacks, calib, proj.col_bits, proj.row_bits, params=params,
+            device=dev)
+    _sync(dev)
+    same = {"poses": np.array_equal(np.asarray(poses), np.asarray(poses2)),
+            "points": np.array_equal(merged.points, merged2.points),
+            "colors": np.array_equal(merged.colors, merged2.colors),
+            "normals": np.array_equal(merged.normals, merged2.normals),
+            "launches": launches == {"decode_maps":
+                                     decode.decode_maps.launches,
+                                     "nearest_one": nn.nearest_one.launches}}
+    print(f"repeat 360° path: bit-equal {same}; nearest_one sweeps by "
+          f"(queries, keys): { {k: v[0] for k, v in sweeps.items()} }",
+          flush=True)
+    if not all(same.values()):
+        fail(f"the 360° path gave other results on the same stacks: {same}")
     if profile:
         profile_run(lambda: scan360.scan_stacks_to_cloud(
             stacks, calib, proj.col_bits, proj.row_bits, params=params,
             device=dev))
-    launches.update(mesh_path(dev, merged, scene, profile=profile))
-    return launches, dict(stacks=stacks, calib=calib, proj=proj, scene=scene)
+    mesh_launches, band = mesh_path(dev, merged, scene, profile=profile)
+    launches.update(mesh_launches)
+    return (launches,
+            dict(stacks=stacks, calib=calib, proj=proj, scene=scene),
+            dict(nn=sweeps, matvec=band))
 
 
 def surface_distance(points: np.ndarray, spheres) -> np.ndarray:
@@ -1078,7 +1278,12 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     depth 10 (trim 0, 100 CG iterations, the bench.py config 6 settings)
     into a temporary STL, with the mesh kernels' launch counters zeroed
     before and read after; stage times, band, mesh, peak memory, the STL
-    read back and the vertices against the scene's analytic surface."""
+    read back and the vertices against the scene's analytic surface. Then
+    the same cloud meshed again must give the same CG count, matvec
+    launches and mesh, bit for bit; that run keeps the first matvec's
+    operands (the path's band) and times the CG iterations on the device's
+    clock (CUDA events at every matvec). Returns the launch counts and the
+    band's operands (x, W, nbr, block_valid)."""
     import tempfile
 
     import torch
@@ -1158,11 +1363,168 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         fail("the STL does not read back to the same face count")
     if not np.isfinite(mesh.vertices).all() or med > 1.0:
         fail(f"the mesh is {med:.3f} mm from the scene's surface (median)")
+
+    # Repeatability: the same cloud again must give the same bits.
+    _sync(dev)
+    poisson_matvec.matvec_band.launches = 0
+    stats2 = {}
+    with cg_matvecs(dev) as seen:
+        mesh2 = meshing.mesh_360(cloud(), os.devnull, depth=10,
+                                 quantile_trim=0.0, cg_iters=100,
+                                 solve_stats=stats2, device=dev)
+    _sync(dev)
+    same = {"cg_iters_used":
+            stats2["cg_iters_used"] == stats["cg_iters_used"],
+            "matvec_launches":
+                poisson_matvec.matvec_band.launches == launches["matvec_band"],
+            "vertices": np.array_equal(mesh.vertices, mesh2.vertices),
+            "faces": np.array_equal(mesh.faces, mesh2.faces)}
+    per_iter = cg_iteration_ms(seen["events"])
+    print(f"repeat mesh path: bit-equal {same}; fine CG "
+          f"{stats2['cg_iters_used']} iterations, {per_iter:.4f} ms per CG "
+          f"iteration on the device's clock (first to last matvec); first "
+          f"run's fine CG stage {timing.get('fine_cg_s', float('nan')):.3f} "
+          f"s", flush=True)
+    if not all(same.values()):
+        fail(f"the mesh path gave other results on the same cloud: {same}")
     if profile:
         profile_run(lambda: meshing.mesh_360(
             cloud(), os.devnull, depth=10, quantile_trim=0.0, cg_iters=100,
             device=dev))
-    return launches
+    return launches, seen["band"]
+
+
+def path_kernel_timings(ops) -> None:
+    """``nearest_one`` at the 360° path's two most swept shapes and
+    ``matvec_band`` on the mesh path's band, with the operands those paths
+    gave them (:func:`main_path`), after the paths' counts were read."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        nn,
+        poisson_matvec as pm,
+    )
+
+    top = sorted(ops["nn"].items(), key=lambda kv: -kv[1][0])[:2]
+    for (m, n), (count, (q, kt, p2v)) in top:
+        d2, idx = nn.nearest_one(q, kt, p2v)
+        rd2, ridx = nn.nearest_one_reference(q, kt, p2v)
+        same = bool(torch_equal_bits(d2, rd2) and (idx == ridx).all())
+        print(f"nearest_one on the 360° path's sweep {m}x{n} ({count} "
+              f"launches of that shape on the path): equal to the plain "
+              f"version: {same}", flush=True)
+        if not same:
+            fail(f"nearest_one disagrees with its plain version on the "
+                 f"path's {m}x{n} sweep")
+        nn_timing(q, kt, p2v, "(the path's sweep)")
+    x, W, nbr, bv = ops["matvec"]
+    same = torch.equal(pm.matvec_band(x, W, nbr, bv),
+                       pm.matvec_band_reference(x, W, nbr, bv))
+    print(f"matvec_band on the mesh path's band: equal to the plain "
+          f"version: {same}", flush=True)
+    if not same:
+        fail("matvec_band disagrees with its plain version on the mesh "
+             "path's band")
+    matvec_timing(x, W, nbr, bv, "mesh path's band")
+
+
+def torch_equal_bits(a, b) -> bool:
+    """Equal bit for bit (float32 as int32: -0 and +0 differ, NaNs must
+    match)."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# Op classes that add floats as atomics on the card, or whose order
+# otherwise depends on timing there (PyTorch's list under
+# ``torch.use_deterministic_algorithms``), watched on CUDA float tensors.
+ATOMIC_CLASS_OPS = frozenset((
+    "index_add", "index_add_", "scatter_add", "scatter_add_",
+    "scatter_reduce", "scatter_reduce_", "index_put", "index_put_",
+    "_index_put_impl_", "put", "put_", "index_reduce", "index_reduce_",
+    "cumsum", "cumsum_", "cumprod", "cumprod_", "histc", "bincount",
+    "embedding_dense_backward", "_embedding_bag", "segment_reduce",
+    "_segment_reduce_backward", "kthvalue", "median", "nanmedian"))
+
+
+def diagnose_determinism(dev) -> None:
+    """One diagnostic run of the 360° path and the mesh path under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: prints
+    every warning it raises (the ops without a deterministic form), and
+    every op of :data:`ATOMIC_CLASS_OPS` met on a CUDA float tensor, by
+    count (deterministic mode silently swaps some of those for a
+    deterministic form, so it does not name them). The mode is switched
+    off again before this returns."""
+    import collections
+    import warnings
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+        scan360,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    seen = collections.Counter()
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ATOMIC_CLASS_OPS:
+                t = next((a for a in args if isinstance(a, torch.Tensor)),
+                         None)
+                if t is not None and t.is_cuda and t.is_floating_point():
+                    acc = (kwargs or {}).get("accumulate",
+                                             args[3] if len(args) > 3
+                                             and isinstance(args[3], bool)
+                                             else None)
+                    seen[f"{name}(accumulate={acc})" if acc is not None
+                         else name] += 1
+            return func(*args, **(kwargs or {}))
+
+    proj = ProjectorConfig()
+    stacks, rig, _, _ = render_stacks(N_STOPS, STEP_DEG, proj)
+    h, w = stacks.shape[2:]
+    calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
+    for label in ("360° path", "mesh path"):
+        seen.clear()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught, Watch():
+                warnings.simplefilter("always")
+                if label == "360° path":
+                    merged, _ = scan360.scan_stacks_to_cloud(
+                        stacks, calib, proj.col_bits, proj.row_bits,
+                        params=scan_params(STEP_DEG), device=dev)
+                else:
+                    meshing.mesh_360(
+                        PointCloud(points=merged.points.copy(),
+                                   colors=merged.colors,
+                                   normals=merged.normals.copy()),
+                        os.devnull, depth=10, quantile_trim=0.0,
+                        cg_iters=100, device=dev)
+                _sync(dev)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        msgs = collections.Counter(str(m.message).splitlines()[0][:200]
+                                   for m in caught)
+        print(f"determinism diagnostic, {label}: ops of the atomic class on "
+              f"CUDA float tensors {dict(seen)}", flush=True)
+        for msg, count in msgs.items():
+            print(f"  warning x{count}: {msg}", flush=True)
+        if not msgs:
+            print("  no warning", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1630,6 +1992,8 @@ def splat_path(dev, ring):
           f"stride {mesher.stride} ({mesher._frames[0][1].shape[1]}x"
           f"{mesher._frames[0][1].shape[0]}); volume {vol['bricks']} bricks; "
           f"kernel launches {ingest}", flush=True)
+    print(f"repeatability witness, splat path: {scene.n_splats} splats; "
+          f"gate overlaps of the skipped stops {skipped}", flush=True)
     print(f"session splat: ensure_scene (seed + fit) {build_s:.3f} s: "
           f"{scene.n_splats} splats of {scene.capacity}, fit loss "
           f"{st['fit_loss_first']} -> {st['fit_loss_last']} in "
@@ -2012,7 +2376,7 @@ def small_rig_agreement(dev) -> None:
         fail(f"the slice on {dev.type} disagrees with the host run")
 
     # On to the mesh at depth 9 on each device, compared by outcome (the
-    # clouds differ by their RANSAC draws and the splats by atomic sums):
+    # clouds differ by their RANSAC draws and the sums' order):
     # face counts within 3%, median vertex-to-vertex distance between the
     # two meshes ≤ 0.25 voxel. A block budget near the band's ~14k blocks
     # keeps the host run's fields small (every field spans the budget).
@@ -2232,6 +2596,11 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the checked run, profile one more main-path "
                          "run and print where the device time goes")
+    ap.add_argument("--diagnose-determinism", action="store_true",
+                    help="build, then run the 360° and mesh paths once "
+                         "under torch.use_deterministic_algorithms(True, "
+                         "warn_only=True) and print what it names (no "
+                         "checks, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2262,6 +2631,9 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
+    if args.diagnose_determinism:
+        diagnose_determinism(dev)
+        return 0
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
                check_matvec(dev, band), check_classify(dev, band),
@@ -2270,7 +2642,9 @@ def main() -> int:
     del band
     if args.kernels_only:
         return 0
-    launches, ring = main_path(dev, N_STOPS, profile=args.profile)
+    launches, ring, ops = main_path(dev, N_STOPS, profile=args.profile)
+    path_kernel_timings(ops)
+    del ops
     launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
     launches["composite_cells"], on_path = splat_path(dev, ring)
     composite = kernels[-1]

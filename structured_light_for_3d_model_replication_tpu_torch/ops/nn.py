@@ -22,7 +22,6 @@ import math
 import torch
 
 _KC = 1024   # key-table padding multiple (the JAX call shape)
-_Q_BLOCK = 64   # queries per CUDA block (csrc/nn1.cu kQ)
 _REF_CHUNK = 2048   # queries per step of the plain version
 
 
@@ -74,13 +73,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(m: int, n: int, device: torch.device) -> int:
-    """Key-range splits so that about four blocks per SM are in flight."""
-    sms = _sm_count(device.index if device.index is not None
-                    else torch.cuda.current_device())
-    q_blocks = max(1, math.ceil(m / _Q_BLOCK))
-    return max(1, min(math.ceil(n / 1024), math.ceil(4 * sms / q_blocks),
-                      65535))
+def _launch_shape(m: int, n: int, index: int) -> tuple[int, int]:
+    """(splits, queries per lane) of the CUDA launch. A block takes a tile
+    of 32 · per_lane queries; ``splits`` blocks of one thread-block cluster
+    share a tile, each sweeping 1/splits of the keys. Four queries a lane
+    unless that leaves fewer than two blocks an SM, then two; the fewest
+    splits (1, 2, 4 or 8) that put two blocks on every SM, while each block
+    keeps at least 256 keys."""
+    target = 2 * _sm_count(index)
+    for per_lane in (4, 2):
+        tiles = max(1, math.ceil(m / (32 * per_lane)))
+        splits = 1
+        while splits < 8 and tiles * splits < target and n >= 512 * splits:
+            splits *= 2
+        if tiles * splits >= target:
+            break
+    return splits, per_lane
+
+
+_launch = None   # the bound ``sl_nearest_one`` of the loaded library
 
 
 def nearest_one(queries: torch.Tensor, keys_t: torch.Tensor,
@@ -90,46 +101,50 @@ def nearest_one(queries: torch.Tensor, keys_t: torch.Tensor,
     :func:`key_table`). Rows with no valid key return d² = +inf; indices
     are always in range.
 
-    A CUDA tensor launches ``sl_nearest_one`` (``csrc/nn1.cu``) and raises
-    if it cannot; only a CPU tensor takes :func:`nearest_one_reference`."""
+    A CUDA tensor launches ``sl_nearest_one`` (``csrc/nn1.cu``, one kernel
+    a call) and raises if it cannot; only a CPU tensor takes
+    :func:`nearest_one_reference`."""
+    global _launch
     if (queries.dim() != 2 or queries.shape[1] != 3 or keys_t.dim() != 2
             or keys_t.shape[0] != 3 or p2v.shape != (1, keys_t.shape[1])):
         raise ValueError(
             f"nearest_one takes (M, 3) queries, (3, N) keys and (1, N) p2v; "
             f"got {tuple(queries.shape)}, {tuple(keys_t.shape)}, "
             f"{tuple(p2v.shape)}")
+    dev = queries.device
     for name, t in (("queries", queries), ("keys_t", keys_t), ("p2v", p2v)):
         if t.dtype != torch.float32:
             raise ValueError(f"nearest_one: {name} must be float32, got "
                              f"{t.dtype}")
-        if t.device != queries.device:
+        if t.device != dev:
             raise ValueError(f"nearest_one: {name} is on {t.device}, "
-                             f"queries on {queries.device}")
+                             f"queries on {dev}")
     n = keys_t.shape[1]
     if n == 0:
         raise ValueError("nearest_one needs at least one key slot")
-    if queries.device.type == "cpu":
+    if dev.type == "cpu":
         return nearest_one_reference(queries, keys_t, p2v)
-    if queries.device.type != "cuda":
-        raise ValueError(f"nearest_one has no kernel for {queries.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"nearest_one has no kernel for {dev}")
     if not (queries.is_contiguous() and keys_t.is_contiguous()
             and p2v.is_contiguous()):
         raise ValueError("nearest_one needs contiguous operands")
     from ..kernels import build
 
-    lib = build.library()
+    if _launch is None:
+        _launch = build.library().sl_nearest_one
     m = queries.shape[0]
-    dev = queries.device
-    splits = _splits(m, n, dev)
-    partial = torch.empty((splits, m), dtype=torch.int64, device=dev)
     d2 = torch.empty((m,), dtype=torch.float32, device=dev)
     idx = torch.empty((m,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sl_nearest_one(queries.data_ptr(), keys_t.data_ptr(),
-                                 p2v.data_ptr(), partial.data_ptr(),
-                                 d2.data_ptr(), idx.data_ptr(), m, n, splits,
-                                 stream)
+    args = (queries.data_ptr(), keys_t.data_ptr(), p2v.data_ptr(),
+            d2.data_ptr(), idx.data_ptr(), m, n,
+            *_launch_shape(m, n, dev.index),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = _launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _launch(*args)
     build.check(err, "sl_nearest_one")
     nearest_one.launches += 1
     return d2, idx

@@ -15,6 +15,7 @@ import math
 import torch
 
 from .._device import div
+from ._scatter import segment_sum
 from .brickknn import brick_knn
 from .brickknn_kernel import MAX_K as _BRICK_MAX_K
 from .brickknn_kernel import MAX_N as _BRICK_MAX_N
@@ -100,22 +101,23 @@ def voxel_downsample(points: torch.Tensor, voxel_size: float,
     new_cell[0] = True
     group = torch.cumsum(new_cell.to(torch.int64), 0) - 1
 
+    # The rows are sorted by cell, so each cell's sum is one contiguous
+    # segment (index order on the CPU, a segmented sum on the card).
     ones = vs.to(torch.float32)
-    counts = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(
-        0, group, ones)
-    sums = torch.zeros((n, 3), dtype=torch.float32, device=dev).index_add_(
-        0, group, ps * ones[:, None])
+    cols = [ones[:, None], ps * ones[:, None]]
+    if attrs is not None:
+        a = attrs.to(torch.float32)[order]
+        a = a[:, None] if a.dim() == 1 else a.flatten(1)
+        cols.append(a * ones[:, None])
+    sums = segment_sum(torch.cat(cols, 1), group, n)
+    counts = sums[:, 0]
     denom = counts.clamp_min(1.0)[:, None]
-    out_points = sums / denom
+    out_points = sums[:, 1:4] / denom
     out_valid = counts > 0
     n_cells = out_valid.sum()
     out_attrs = None
     if attrs is not None:
-        a = attrs.to(torch.float32)
-        asums = torch.zeros((n,) + a.shape[1:], dtype=torch.float32,
-                            device=dev).index_add_(0, group,
-                                                   a[order] * ones[:, None])
-        out_attrs = asums / denom
+        out_attrs = (sums[:, 4:] / denom).reshape((n,) + attrs.shape[1:])
     return out_points, out_attrs, out_valid, n_cells
 
 

@@ -2,7 +2,9 @@
 ``ops/poisson.py``).
 
 1. trilinear **splat** of the oriented normal field into a (R,R,R,3) vector
-   grid V plus a scalar sample-density grid — one ``index_add_``;
+   grid V plus a scalar sample-density grid — one scatter-sum
+   (:func:`._scatter.scatter_sum`: ``index_add_`` on the CPU, a sorting
+   accumulate on the card, the same bits on every run);
 2. **divergence** of V by central differences;
 3. the screened Poisson equation ``(∇² − α·W)χ = ∇·V`` solved with
    Jacobi-preconditioned **conjugate gradients** (7-point Laplacian with
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import div
+from ._scatter import scatter_sum
 
 _CORNER_OFFS = [[dx, dy, dz] for dx in (0, 1) for dy in (0, 1)
                 for dz in (0, 1)]
@@ -89,9 +92,7 @@ def splat(grid_pts: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
     flat, w = _corner_weights(grid_pts, R)
     w = w * valid.to(torch.float32)[:, None]
     contrib = w[..., None] * values[:, None, :]
-    out = torch.zeros((R * R * R, c), dtype=torch.float32,
-                      device=values.device)
-    out.index_add_(0, flat.reshape(-1), contrib.reshape(-1, c))
+    out = scatter_sum(R * R * R, flat.reshape(-1), contrib.reshape(-1, c))
     return out.reshape(R, R, R, c)
 
 

@@ -37,6 +37,11 @@ def _check(x, W, nbr, block_valid) -> None:
         if t.device != x.device:
             raise ValueError(f"matvec_band: {name} is on {t.device}, x on "
                              f"{x.device}")
+    # The kernel moves x, W and out as 16-byte vectors.
+    for name, t in (("x", x), ("W", W)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"matvec_band: {name} must start on a 16-byte "
+                             f"boundary")
 
 
 def matvec_band_reference(x: torch.Tensor, W: torch.Tensor,
@@ -53,32 +58,42 @@ def matvec_band_reference(x: torch.Tensor, W: torch.Tensor,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+_launch = None   # the bound ``sl_matvec_band`` of the loaded library
+
+
 def matvec_band(x: torch.Tensor, W: torch.Tensor, nbr: torch.Tensor,
                 block_valid: torch.Tensor) -> torch.Tensor:
     """One screened-stencil matvec on the band: x, W (M, 512) float32,
     nbr (M, 6) int32, block_valid (M,) bool → (M, 512) float32, zero
-    outside the band.
+    outside the band. x and W start on a 16-byte boundary (any tensor
+    allocated as such, or a slice of whole rows of one, does).
 
     A CUDA tensor launches ``sl_matvec_band`` (``csrc/matvec.cu``) and
     raises if it cannot; only a CPU tensor takes
     :func:`matvec_band_reference`."""
+    global _launch
     _check(x, W, nbr, block_valid)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return matvec_band_reference(x, W, nbr, block_valid)
-    if x.device.type != "cuda":
-        raise ValueError(f"matvec_band has no kernel for {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"matvec_band has no kernel for {dev}")
     if not (x.is_contiguous() and W.is_contiguous() and nbr.is_contiguous()
             and block_valid.is_contiguous()):
         raise ValueError("matvec_band needs contiguous operands")
     from ..kernels import build
 
-    lib = build.library()
+    if _launch is None:
+        _launch = build.library().sl_matvec_band
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sl_matvec_band(x.data_ptr(), W.data_ptr(), nbr.data_ptr(),
-                                 block_valid.data_ptr(), out.data_ptr(),
-                                 x.shape[0], stream)
+    args = (x.data_ptr(), W.data_ptr(), nbr.data_ptr(),
+            block_valid.data_ptr(), out.data_ptr(), x.shape[0],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = _launch(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _launch(*args)
     build.check(err, "sl_matvec_band")
     matvec_band.launches += 1
     return out

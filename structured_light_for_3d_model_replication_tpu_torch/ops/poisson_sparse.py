@@ -41,6 +41,7 @@ import torch
 
 from . import poisson as dense_poisson
 from .poisson import vdot
+from ._scatter import ScatterPlan, scatter_sum
 from .poisson_matvec import matvec_band
 from .._device import div, resolve_device, stage_clock
 
@@ -324,8 +325,7 @@ def _setup_sparse(points, normals, valid, resolution: int, max_blocks: int,
     vals = torch.cat([normals, torch.ones((n, 1), device=dev)], -1)
     contrib = w[..., None] * vals[:, None, :]                  # (N, 8, 4)
     dest = torch.where(cfound, flat, m * _V).reshape(-1)
-    acc = torch.zeros((m * _V + 1, 4), dtype=torch.float32, device=dev)
-    acc.index_add_(0, dest, contrib.reshape(-1, 4))
+    acc = scatter_sum(m * _V + 1, dest, contrib.reshape(-1, 4))
     del contrib, dest
     density = acc[:m * _V, 3].reshape(m, _V).contiguous()
     rhs = _div_band_flat(acc[:m * _V, :3].reshape(m, _V, 3), nbr.long())
@@ -411,6 +411,15 @@ def _interp3_t(wgt: torch.Tensor, r3: torch.Tensor) -> torch.Tensor:
     t = torch.einsum("cxi,cxyz->ciyz", wgt[:, 0], r3)
     t = torch.einsum("cyj,ciyz->cijz", wgt[:, 1], t)
     return torch.einsum("czk,cijz->cijk", wgt[:, 2], t)
+
+
+def _restrict(rf: torch.Tensor, wgt: torch.Tensor, plan: ScatterPlan,
+              crf: torch.Tensor) -> torch.Tensor:
+    """Band residual (M, 512) → coarse grid (Rc³,): Pᵀ·cr, summed into
+    the coarse cells through ``plan`` (the destinations of
+    :func:`_sep_weights`' ``flat_idx``, fixed for a whole solve)."""
+    G = _interp3_t(wgt, rf.reshape(-1, BS, BS, BS))
+    return plan.sum(G.reshape(-1) * crf)
 
 
 def _prolong_band(coarse_chi, rhs, nbr, block_valid, block_coords,
@@ -523,11 +532,10 @@ def _pcg_sparse(b, W, x0, nbr, block_valid, block_coords, coarse_W,
     Wc = coarse_W * ratio2
     dinv_c = 1.0 / (6.0 + Wc)
 
+    plan = ScatterPlan(flat_idx, Rc ** 3)   # sorted once, used every step
+
     def restrict(rf):
-        """Band residual (M, 512) → coarse grid (Rc³,): Pᵀ·cr."""
-        G = _interp3_t(wgt, rf.reshape(m, BS, BS, BS))
-        acc = torch.zeros((Rc ** 3,), dtype=torch.float32, device=dev)
-        return acc.index_add_(0, flat_idx, G.reshape(-1) * crf)
+        return _restrict(rf, wgt, plan, crf)
 
     def prolong(ec_flat):
         """Coarse correction (Rc³,) → band interiors (M, 512)."""

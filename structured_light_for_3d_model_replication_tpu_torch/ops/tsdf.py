@@ -23,9 +23,9 @@ volume's own tensors are updated in place on the card (the combine writes
 into them) and the returned :class:`TSDFState` holds the new tensors.
 Scatters that the JAX package drops past the end (``mode="drop"``) write
 into one spare row that is cut off. The stop's weighted sums are one
-scatter (:func:`_scatter_sum`); on the card it sorts, so the sums are the
-same from run to run. :func:`integrate_oracle` is the NumPy oracle (dense
-grid, same float32 formulas), copied from the JAX package.
+scatter (:func:`._scatter.scatter_sum`); on the card it sorts, so the sums
+are the same from run to run. :func:`integrate_oracle` is the NumPy oracle
+(dense grid, same float32 formulas), copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import div
+from ._scatter import scatter_sum
 
 BS = 8
 V = BS ** 3                  # 512 voxels per brick
@@ -124,20 +125,6 @@ def _flat_voxel(vox: torch.Tensor, ok: torch.Tensor, dir_map: torch.Tensor,
     return torch.where(ok & (slot >= 0), flat, cap * V)
 
 
-def _scatter_sum(size: int, idx, vals):
-    """(size, C) zeros with the rows of ``vals`` (N, C) summed in at
-    ``idx``. On the card a sorting accumulate (``index_put_``): atomic
-    ``index_add_`` would order each row's terms by timing, so two runs on
-    one cloud could differ in the last bits (seen on the H100 between a
-    sequential and a pipelined TSDF mesh). On the CPU ``index_add_``, which
-    adds in index order."""
-    out = torch.zeros((size, vals.shape[1]), dtype=vals.dtype,
-                      device=vals.device)
-    if vals.is_cuda:
-        return out.index_put_((idx,), vals, accumulate=True)
-    return out.index_add_(0, idx, vals)
-
-
 def integrate(state: TSDFState, params: TSDFParams, points, colors, valid,
               dirs, origin, voxel_size: float):
     """Fuse one stop (world-frame tensors on the volume's device) into the
@@ -200,7 +187,7 @@ def integrate(state: TSDFState, params: TSDFParams, points, colors, valid,
 
     # -- scatter the stop's weighted sums into the brick pool --------------
     flat = _flat_voxel(vox, ok, dir_map, nb, cap).reshape(-1)
-    sums = _scatter_sum(cap * V + 1, flat, torch.cat(
+    sums = scatter_sum(cap * V + 1, flat, torch.cat(
         [(w * u)[..., None], w[..., None], w[..., None] * colors[:, None, :]],
         -1).reshape(-1, 5))[:cap * V].reshape(cap, V, 5)
     num, den, rgbnum = (sums[..., 0].contiguous(),

@@ -123,3 +123,17 @@ def test_nn1_matches_jax(rng):
     f = found.numpy()
     assert np.array_equal(idx.numpy()[f], np.asarray(jidx)[f])
     np.testing.assert_allclose(d2.numpy()[f], np.asarray(jd2)[f], rtol=1e-6)
+
+
+def test_cluster_splits_fill_the_card(monkeypatch):
+    """The CUDA launch's shape (``_launch_shape``, pure host arithmetic):
+    four queries a lane unless that leaves fewer than two blocks on each
+    of 132 SMs, then two; the fewest blocks per tile, 1 to 8, that put two
+    blocks on every SM, each block keeping at least 256 keys."""
+    monkeypatch.setattr(nn, "_sm_count", lambda index: 132)
+    assert nn._launch_shape(2048, 8192, 0) == (8, 2)    # ICP warm-up
+    assert nn._launch_shape(8192, 8192, 0) == (8, 4)
+    assert nn._launch_shape(20_000, 8192, 0) == (2, 4)  # 157 tiles
+    assert nn._launch_shape(131_072, 8192, 0) == (1, 4)
+    assert nn._launch_shape(100, 1024, 0) == (4, 2)     # 256 keys a block
+    assert nn._launch_shape(100, 300, 0) == (1, 2)

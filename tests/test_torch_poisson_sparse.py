@@ -236,3 +236,19 @@ def test_grid_from_numpy_carries_every_field():
         np.testing.assert_array_equal(getattr(g_t, name).numpy(),
                                       np.asarray(getattr(g_j, name)))
     assert g_t.nbr.dtype == torch.int32 and g_t.block_valid.dtype == torch.bool
+
+
+def test_matvec_wrapper_needs_16_byte_aligned_rows(band):
+    """The kernel moves x and W as 16-byte vectors: a tensor that starts
+    off that boundary is refused on any device; whole-row slices are fine."""
+    rhs, W, nbr, bv = (torch.tensor(a) for a in band)
+    flat = torch.zeros(rhs.numel() + 1)
+    x = flat[1:].view(rhs.shape)
+    x.copy_(rhs)
+    with pytest.raises(ValueError, match="16-byte"):
+        poisson_matvec.matvec_band(x, W, nbr, bv)
+    with pytest.raises(ValueError, match="16-byte"):
+        poisson_matvec.matvec_band(rhs, flat[1:].view(W.shape), nbr, bv)
+    got = poisson_matvec.matvec_band(rhs[3:], W[3:], nbr[3:], bv[3:])
+    assert torch.equal(got, poisson_matvec.matvec_band_reference(
+        rhs[3:], W[3:], nbr[3:], bv[3:]))
