@@ -679,6 +679,93 @@ def brick_exact(dev, pts, val, k: int, excl: bool, label: str):
     return err, (bricks, nbr, nnb)
 
 
+def brick_timing(bricks, nbr, nnb, k: int, excl: bool, label: str) -> dict:
+    """``brick_knn_cells`` timed on one set of inputs (CUDA events), beside
+    its bound from what these inputs need -- the live points once (16 B
+    each), the table and the counts, a k-wide output row (d², id) for each
+    live point; 8 fp32 operations for each pair of a live query and a live
+    candidate in one of its cell's present neighbour bricks -- and its
+    issue-rate floor, 11 unfused fp32 instructions a live pair (as
+    ``nn_timing``'s)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel as bk,
+    )
+
+    ms = cuda_ms(lambda: bk.brick_knn_cells(bricks, nbr, nnb, k, excl), 20)
+    c = bricks.shape[0]
+    slot = torch.arange(27, device=bricks.device)
+    live = (bricks[..., 3] >= 0).sum(1)
+    present = slot[None] < nnb[:, None]
+    cand = torch.where(present, live[nbr.long().clamp(0, c - 1)],
+                       torch.zeros((), dtype=live.dtype,
+                                   device=bricks.device)).sum(1)
+    pairs = float((live.to(torch.float64) * cand.to(torch.float64)).sum())
+    n_live = int(live.sum())
+    flops = NN_FLOPS_PER_PAIR * pairs
+    nbytes = n_live * 16 + c * 27 * 4 + c * 4 + n_live * k * 8
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    floor_ms = NN_INSTR_PER_PAIR * pairs / H100_FP32_LANE_OPS * 1e3
+    print(f"brick_knn_cells {label}: {c} cells, {n_live} live points, "
+          f"k={k}: {ms:.4f} ms/launch, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{pairs / 1e6:.1f} M live pairs, {flops / 1e9:.3f} GFLOP -> "
+          f"{t_ops:.4f} ms; {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms), "
+          f"issue-rate floor {floor_ms:.4f} ms ({NN_INSTR_PER_PAIR} fp32 "
+          f"instructions a live pair)", flush=True)
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def brick_hand_made(dev) -> None:
+    """``brick_knn_cells`` against its plain version, d² bits and ids
+    equal, on hand-made tables of 27 bricks: cell 0 reads all 27 bricks
+    (with 32 live slots each, 864 candidates for each of its 32 queries),
+    one cell reads none, one three; the bricks full of random points, full
+    of one repeated point (every candidate at one distance: ties to the
+    smaller id), and with 40% of the slots empty at random (live slots
+    that are no prefix); k = 1, 20, 30 and 32, each with and without
+    ``exclude_self``."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel as bk,
+    )
+
+    rng = np.random.default_rng(27)
+    for label in ("full bricks", "one repeated point", "40% empty slots"):
+        xyz = (rng.normal(size=(27, 32, 3)) * 10).astype(np.float32)
+        if label == "one repeated point":
+            xyz[:] = (1.0, 0.0, 0.0)
+        ids = rng.permutation(27 * 32).reshape(27, 32).astype(np.int32)
+        if label == "40% empty slots":
+            hole = rng.random((27, 32)) < 0.4
+            xyz[hole] = np.inf
+            ids[hole] = -1
+        bricks = torch.from_numpy(np.concatenate(
+            [xyz.view(np.int32), ids[..., None]], -1)).to(dev)
+        nbr = torch.from_numpy(np.stack([np.roll(np.arange(27), -i)
+                                         for i in range(27)]).astype(
+            np.int32)).to(dev)
+        nnb = torch.full((27,), 27, dtype=torch.int32, device=dev)
+        nnb[5], nnb[6] = 0, 3
+        same = {}
+        for k in (1, 20, 30, 32):
+            for excl in (False, True):
+                d, i = bk.brick_knn_cells(bricks, nbr, nnb, k, excl)
+                rd, ri = bk.brick_knn_cells_plain(bricks, nbr, nnb, k, excl)
+                torch.cuda.synchronize()
+                same[(k, excl)] = torch.equal(
+                    d.view(torch.int32), rd.view(torch.int32)) \
+                    and torch.equal(i, ri)
+        print(f"brick_knn_cells hand-made, {label}: d2 bits and ids equal to"
+              f" the plain version for (k, exclude_self) {same}", flush=True)
+        if not all(same.values()):
+            fail(f"brick_knn_cells disagrees with its plain version on the "
+                 f"hand-made {label}")
+
+
 def brute_knn(pts, val, k: int, excl: bool, rows):
     """The k nearest valid points of each of ``rows``, by brute force over
     direct differences (the matmul expansion cancels at the clouds' ~500 mm
@@ -719,8 +806,10 @@ def check_brick_knn(dev):
     at bench config 3b's shape (config 3's 2²⁰-point cylinder, k = 20,
     ``exclude_self``) and at a ragged cloud (100,003 points, 10% invalid,
     a 100-point clump that overflows its brick, k = 30, self included).
-    Exact: d² bit-equal, ids equal. Then, at the first shape, the kernel
-    timed beside its bound, the plain version and a library yardstick
+    Exact: d² bit-equal, ids equal; so too on the hand-made tables of
+    :func:`brick_hand_made`. Then, at the first shape, the kernel timed
+    beside its bound and issue-rate floor, the plain version and a library
+    yardstick
     (``torch.cdist`` in its default matmul mode + ``torch.topk``, two
     calls, over the same gathered candidates); recall of ``brick_knn``
     against brute force on 4,096 sampled rows, by direct differences (the
@@ -754,9 +843,11 @@ def check_brick_knn(dev):
         max_err = max(max_err, err)
         if main is None:
             main = (pts, val, *inputs, k, excl)
+    brick_hand_made(dev)
     pts, val, bricks, nbr, nnb, k, excl = main
     c = bricks.shape[0]
-    ms = cuda_ms(lambda: bk.brick_knn_cells(bricks, nbr, nnb, k, excl), 20)
+    timing = brick_timing(bricks, nbr, nnb, k, excl,
+                          "at the 2^20-point cylinder")
     plain_ms = cuda_ms(
         lambda: bk.brick_knn_cells_plain(bricks, nbr, nnb, k, excl), 2, 1)
     # Library yardstick over the same gathered candidates; absent neighbour
@@ -772,27 +863,9 @@ def check_brick_knn(dev):
     lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(coords, cand), k, dim=2,
                                         largest=False), 5, 1)
     del cand
-    # Bound, from what these inputs need: the live points once (16 B
-    # each), the table and the counts, a k-wide output row (d², id) for
-    # each live point; 8 fp32 operations for each pair of a live query and
-    # a live candidate in one of its cell's present neighbour bricks.
-    live = (bricks[..., 3] >= 0).sum(1)
-    present = slot[None] < nnb[:, None]
-    cand = torch.where(present, live[nbr.long().clamp(0, c - 1)],
-                       torch.zeros((), dtype=live.dtype, device=dev)).sum(1)
-    pairs = float((live.to(torch.float64) * cand.to(torch.float64)).sum())
-    n_live = int(live.sum())
-    flops = NN_FLOPS_PER_PAIR * pairs
-    nbytes = n_live * 16 + c * 27 * 4 + c * 4 + n_live * k * 8
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
-    print(f"brick_knn_cells {c} cells, {n_live} live points, k={k}: "
-          f"{ms:.4f} ms/launch, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{pairs / 1e6:.1f} M live pairs, {flops / 1e9:.3f} GFLOP -> "
-          f"{t_ops:.4f} ms; {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms), "
-          f"plain {plain_ms:.3f} ms, library torch.cdist + torch.topk (two "
-          f"calls) {lib_ms:.3f} ms", flush=True)
+    print(f"brick_knn_cells at the 2^20-point cylinder: plain "
+          f"{plain_ms:.3f} ms, library torch.cdist + torch.topk (two calls) "
+          f"{lib_ms:.3f} ms", flush=True)
 
     # Recall of the whole engine against brute force on 4,096 rows.
     d, i, v = brickknn.brick_knn(pts, k, points_valid=val, exclude_self=excl)
@@ -829,8 +902,9 @@ def check_brick_knn(dev):
                        "csrc/brick_knn.cu",
                 replaces="structured_light_for_3d_model_replication_tpu/ops/"
                          "brickknn_pallas.py:380",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                max_abs_err=max_err, ms=timing["ms"], plain_ms=plain_ms,
+                bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+                library_ms=lib_ms)
 
 
 def composite_scene(dev):
@@ -868,12 +942,13 @@ def composite_scene(dev):
                                   depth=8, max_bricks=16_384, device=dev)
 
 
-def composite_agrees(planes, x0, y0, tile: int, label: str) -> float:
+def composite_agrees(planes, x0, y0, tile: int, label: str,
+                     tol: float = 1e-5) -> float:
     """``composite_cells`` against its plain version on one set of
-    records, to 1e-5 (the JAX package's tolerance between its two
-    composite forms, tests/test_splat.py: the K-sum runs in another
-    order); fails on a larger gap or a non-finite output. Returns the
-    gap."""
+    records, to ``tol``: 1e-5 by default, the JAX package's tolerance
+    between its two composite forms (tests/test_splat.py: the K-sum runs
+    in another order); fails on a larger gap or a non-finite output.
+    Returns the gap."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
@@ -887,7 +962,7 @@ def composite_agrees(planes, x0, y0, tile: int, label: str) -> float:
     err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     print(f"composite_cells {label}: max |kernel - plain| = {err:.3e}, "
           f"outputs finite {finite}", flush=True)
-    if not finite or not err <= 1e-5:
+    if not finite or not err <= tol:
         fail(f"composite_cells disagrees with its plain version ({label})")
     return err
 
@@ -897,9 +972,10 @@ def composite_timing(recs, x0, y0, tile: int, label: str) -> dict:
     (by the profiler: the kernel runs for less time than its wrapper's
     host work, so CUDA events around a loop of calls time the host; the
     call's time comes from the events), its plain version's, and its bound
-    from these records: the ten planes read once, the tile origins, (rgb,
-    alpha) per pixel written once, and every live (pixel, record) pair one
-    fold step."""
+    from what these records need: the ``ok`` plane at its own dtype's size
+    for every slot, the nine other planes (36 B) for each live record only,
+    the tile origins (8 B a tile), (rgb, alpha) per pixel written once (16
+    B), and every live (pixel, record) pair one fold step."""
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         splat_composite as sc,
     )
@@ -912,7 +988,8 @@ def composite_timing(recs, x0, y0, tile: int, label: str) -> dict:
     n_tiles, kk = recs[0].shape
     t2 = tile ** 2
     live = int(recs[9].sum())
-    nbytes = 40 * n_tiles * kk + 8 * n_tiles + 16 * n_tiles * t2
+    nbytes = recs[9].element_size() * n_tiles * kk + 36 * live \
+        + 8 * n_tiles + 16 * n_tiles * t2
     pairs = live * t2
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = pairs * COMPOSITE_FLOPS_PER_PAIR / H100_FP32_FLOPS * 1e3
@@ -930,12 +1007,52 @@ def composite_timing(recs, x0, y0, tile: int, label: str) -> dict:
                 bound_by=bound_by)
 
 
+def composite_edges(recs, x0, y0, tile: int) -> float:
+    """``composite_cells`` against its plain version, to 1e-6, on config
+    12's records with ``ok`` as bool and as float32 (the kernel's two
+    outputs bit-equal), and with the first tile's only member moved to
+    slot K − 1 (NaN in every other slot of that tile) and the second
+    tile's members all dropped. Returns the largest gap."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_composite as sc,
+    )
+
+    as_float = [*recs[:9], recs[9].to(torch.float32)]
+    err = max(composite_agrees(recs, x0, y0, tile, "config 12, ok bool",
+                               1e-6),
+              composite_agrees(as_float, x0, y0, tile, "config 12, ok float",
+                               1e-6))
+    same = all(torch.equal(a, b) for a, b in zip(
+        sc.composite(*recs, x0, y0, tile),
+        sc.composite(*as_float, x0, y0, tile)))
+    print(f"composite_cells: bool and float ok give bit-equal pixels: {same}",
+          flush=True)
+    if not same:
+        fail("composite_cells: bool and float ok give other pixels")
+    edge = [a.clone() for a in recs]
+    kk = recs[0].shape[1]
+    first = int(torch.argmax(recs[9].sum(1)))     # the fullest tile
+    src = int(torch.nonzero(recs[9][first])[0])
+    for a in edge[:9]:
+        a[first, kk - 1] = a[first, src]
+        a[first, :kk - 1] = float("nan")
+    edge[9][first] = False
+    edge[9][first, kk - 1] = True
+    second = (first + 1) % recs[0].shape[0]
+    edge[9][second] = False
+    return max(err, composite_agrees(
+        edge, x0, y0, tile, f"tile {first}'s only member at slot K - 1, "
+        f"tile {second} without a member", 1e-6))
+
+
 def check_composite(dev):
     """``composite_cells`` against its plain version at config 12's render
     (384×288, tile 8, K = 128, 1,728 tiles, records of a seeded 16,384-slot
     scene) and at a ragged shape (tile 16, K = 77, 1,009 tiles, half the
-    slots masked), the ragged one also with NaN in every masked slot, and
-    timed on the first. The splat path times it again on its own records
+    slots masked), the ragged one also with NaN in every masked slot, the
+    edge cases of :func:`composite_edges`, and timed on the first. The splat path times it again on its own records
     (``splat_path``), and those numbers go into the ``kernels`` line."""
     import torch
 
@@ -982,6 +1099,7 @@ def check_composite(dev):
     if max(float((a - b).abs().max()) for a, b in zip(
             sc.composite(*poisoned, rx0, ry0, tile), ref_ragged)) > 1e-5:
         fail("composite_cells: NaN in masked slots changed the pixels")
+    max_err = max(max_err, composite_edges(recs, x0, y0, cfg.tile))
     timing = composite_timing(recs, x0, y0, cfg.tile,
                               "on the sphere-cloud scene")
     return dict(name="composite_cells", route="cuda",
@@ -2236,12 +2354,13 @@ def cleanup_engines(dev, bg, clean, spheres) -> None:
     pts_p, val_p = merge._pad_cloud(bg.points, dev)
     pts_c = torch.from_numpy(np.asarray(clean.points, np.float32)).to(dev)
     val_c = torch.ones(len(pts_c), dtype=torch.bool, device=dev)
-    brick_exact(dev, pts_p, val_p, 20, True,
-                f"cleanup outliers ({len(bg)} points padded to "
-                f"{len(pts_p)}, k=20, exclude_self)")
-    brick_exact(dev, pts_c, val_c, 30, False,
-                f"cleanup normals ({len(pts_c)} points, k=30, self "
-                "included)")
+    for pts, val, k, excl, label in (
+            (pts_p, val_p, 20, True, f"cleanup outliers ({len(bg)} points "
+             f"padded to {len(pts_p)}, k=20, exclude_self)"),
+            (pts_c, val_c, 30, False, f"cleanup normals ({len(pts_c)} "
+             "points, k=30, self included)")):
+        _, inputs = brick_exact(dev, pts, val, k, excl, label)
+        brick_timing(*inputs, k, excl, label)
 
     # The exact neighbours of every point, then each engine's two sweeps:
     # recall against them, the SOR keep mask by the 2σ rule of

@@ -3,6 +3,7 @@
 in turns.
 
     python3 scripts/torch_compare_trees.py OLD NEW [--runs 2]
+        [--paths ring,splat,cleanup]
 
 OLD and NEW are roots of two checkouts of this repository (a parent
 commit unpacked with ``git archive`` into a git-ignored directory, and
@@ -10,28 +11,41 @@ commit unpacked with ``git archive`` into a git-ignored directory, and
 of each tree, in turns OLD, NEW, NEW, OLD, each turn in its own process,
 so each turn imports its own tree's package and builds its own tree's
 kernels from its own ``csrc/``: no wrapper or C signature is copied here.
-The timing helpers and the ring come from this script's repository's
-``chip_smoke.py`` (``profile_calls``, ``cuda_ms``, ``sweep_tally``,
-``cg_matvecs``, ``render_stacks``, ``scan_params``), whose imports of the
+The timing helpers, the ring and the scenes come from this script's
+repository's ``chip_smoke.py`` (``profile_calls``, ``cuda_ms``,
+``sweep_tally``, ``cg_matvecs``, ``render_stacks``, ``render_stop``,
+``scan_params``, ``splat_params``, ``heldout_view``), whose imports of the
 port resolve to the tree being measured.
 
-A turn measures:
+A turn measures, on the device (the profiler: every kernel a call
+launches) and as a call with its wrapper (CUDA events):
 
-* ``nearest_one`` and ``matvec_band`` on seeded operands (random keys at
-  2048×8192 and 8192×8192, seeded x and W on the sphere band); a digest of
-  their outputs, which must be equal in every turn;
-* the headline 24-stop 1080p ring through ``scan_stacks_to_cloud`` and
-  its merged cloud through ``mesh_360`` at depth 10, once to warm up (which
-  keeps the sweeps by shape and the mesh band) and ``--runs`` times timed:
-  wall and stage seconds, fine CG iterations and the device time per CG
-  iteration;
-* ``nearest_one`` at the ring's two most swept shapes and ``matvec_band``
-  on the mesh band and the sphere band, on the device (the profiler: every
-  kernel a call launches) and a call with its wrapper (CUDA events).
+* always, on seeded operands: ``nearest_one`` (random keys at 2048×8192
+  and 8192×8192), ``matvec_band`` (seeded x and W on the sphere band) and
+  ``brick_knn_cells`` (bench 3b's 2²⁰-point cylinder, k = 20,
+  ``exclude_self``); a digest of every output, which must be equal in
+  every turn;
+* ``ring``: the headline 24-stop 1080p ring through
+  ``scan_stacks_to_cloud`` and its merged cloud through ``mesh_360`` at
+  depth 10, once to warm up (which keeps the sweeps by shape and the mesh
+  band) and ``--runs`` times timed: wall and stage seconds, fine CG
+  iterations and the device time per CG iteration; then ``nearest_one``
+  at the ring's two most swept shapes and ``matvec_band`` on the mesh band
+  and the sphere band;
+* ``splat``: bench config 12 on the same ring (stops 0–22 through a
+  ``"splat"`` session, ``ensure_scene``), then ``--runs`` sweeps of 20
+  views at 384×288, each view's wall (the median is the end-to-end line);
+  then ``composite_cells`` on the records of sweep view 0 and of held-out
+  stop 23's view, with digests;
+* ``cleanup``: one walled 1080p stop through reconstruct → PLY out and
+  back → ``remove_background`` → ``remove_outliers`` →
+  ``reconstruct_stl`` at depth 10, once to warm up (which keeps the brick
+  kernel's two inputs) and ``--runs`` times timed; then
+  ``brick_knn_cells`` on those two inputs, with digests.
 
 Then per kernel and stage the mean of each tree's turns and their ratio,
 and the card's name and power limit. Exits 1 if a turn fails or the two
-trees' kernels give different outputs on the seeded operands.
+trees' kernels give different outputs (any digest differs).
 """
 
 from __future__ import annotations
@@ -66,27 +80,23 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def measure(runs: int, dev) -> dict:
+PATHS = ("ring", "splat", "cleanup")
+
+
+def measure(runs: int, dev, paths=PATHS) -> dict:
     """One turn on ``dev``, from the root of the tree measured (first on
-    ``sys.path``)."""
-    import numpy as np
+    ``sys.path``), over the named ``paths``."""
     import torch
 
     cs = _chip_smoke()
     from structured_light_for_3d_model_replication_tpu_torch.config import (
         ProjectorConfig,
     )
-    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
-        PointCloud,
-    )
     from structured_light_for_3d_model_replication_tpu_torch.kernels import (
         build,
     )
-    from structured_light_for_3d_model_replication_tpu_torch.models import (
-        meshing,
-        scan360,
-    )
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel as bk,
         nn,
         poisson_matvec as pm,
     )
@@ -97,7 +107,7 @@ def measure(runs: int, dev) -> dict:
     t0 = time.perf_counter()
     build.library()
     out = {"tree": os.getcwd(), "build_s": time.perf_counter() - t0,
-           "digest": {}, "kernels": {}, "runs": []}
+           "digest": {}, "kernels": {}, "runs": {}}
 
     def timed(label, fn, reps):
         ms, seen = cs.profile_calls(fn, reps)
@@ -119,12 +129,53 @@ def measure(runs: int, dev) -> dict:
     W = torch.rand((nbr.shape[0], 512), device=dev, generator=g)
     sphere = (x, W, nbr, bv)
     out["digest"]["matvec_band sphere"] = _digest(pm.matvec_band(*sphere))
+    timed("matvec_band sphere band", lambda: pm.matvec_band(*sphere), 50)
+    del x, W, sphere
+    pts = torch.from_numpy(cs.cylinder_cloud(cs.BRICK_N, 0)).to(dev)
+    bricks = bk.kernel_inputs(pts, torch.ones(len(pts), dtype=torch.bool,
+                                              device=dev), 20, 140,
+                              len(pts) // 8 + 1024)[:3]
+    out["digest"]["brick_knn_cells 2^20 cylinder"] = _digest(
+        *bk.brick_knn_cells(*bricks, 20, True))
+    timed("brick_knn_cells 2^20 cylinder k=20",
+          lambda: bk.brick_knn_cells(*bricks, 20, True), 20)
+    del pts, bricks
 
     proj = ProjectorConfig()
-    stacks, rig, _, _ = cs.render_stacks(cs.N_STOPS, cs.STEP_DEG, proj)
-    h, w = stacks.shape[2:]
-    calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
+    if "ring" in paths or "splat" in paths:
+        stacks, rig, _, _ = cs.render_stacks(cs.N_STOPS, cs.STEP_DEG, proj)
+        h, w = stacks.shape[2:]
+        calib = make_calibration(*rig, h, w, proj.width, proj.height,
+                                 device=dev)
+    if "ring" in paths:
+        ring_paths(out, runs, dev, cs, stacks, calib, proj, timed)
+    if "splat" in paths:
+        splat_path(out, runs, dev, cs, stacks, calib, proj, timed)
+        del stacks
+    if "cleanup" in paths:
+        cleanup_path(out, runs, dev, cs, proj, timed)
+    return out
+
+
+def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
+    """The 360° ring and its mesh, warm-up + ``runs`` timed runs, then the
+    nearest-one and matvec kernels on the path's own operands."""
+    import numpy as np
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+        scan360,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        nn,
+        poisson_matvec as pm,
+    )
+
     params = cs.scan_params(cs.STEP_DEG)
+    out["runs"]["ring"] = []
     for run in range(runs + 1):
         timing, mtiming, stats = {}, {}, {}
         cs._sync(dev)
@@ -156,16 +207,140 @@ def measure(runs: int, dev) -> dict:
                "cg_iteration_ms": cs.cg_iteration_ms(cg["events"]),
                "points": len(merged),
                "checksum": float(np.abs(merged.points).sum())}
-        out["runs"].append(row)
-        print(f"run {run}: {json.dumps(row)}", flush=True)
+        out["runs"]["ring"].append(row)
+        print(f"ring run {run}: {json.dumps(row)}", flush=True)
     out["sweeps"] = {f"{m}x{n}": c for (m, n), (c, _) in sweeps.items()}
     for (m, n), (count, (q, kt, p2v)) in sorted(
             sweeps.items(), key=lambda kv: -kv[1][0])[:2]:
         timed(f"nearest_one ring sweep {m}x{n}",
               lambda: nn.nearest_one(q, kt, p2v), 200)
     timed("matvec_band mesh band", lambda: pm.matvec_band(*band), 50)
-    timed("matvec_band sphere band", lambda: pm.matvec_band(*sphere), 50)
-    return out
+
+
+def splat_path(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
+    """Bench config 12: stops 0–22 through a splat session, the scene
+    built, ``runs`` sweeps of 20 views (each view's wall), then the
+    composite on the records of sweep view 0 and the held-out view."""
+    import statistics
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_composite as sc,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        splat_render as sr,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+    )
+
+    sp = cs.splat_params(merge.MergeParams(voxel_size=3.0,
+                                           final_max_points=131_072,
+                                           step_deg=cs.STEP_DEG))
+    sess = IncrementalSession(calib, proj.col_bits, proj.row_bits, params=sp,
+                              scan_id="compare-splat", device=dev)
+    for k in range(cs.HELD_OUT):
+        sess.add_stop(stacks[k])
+    mesher = sess.previewer
+    t0 = time.perf_counter()
+    scene = mesher.ensure_scene()
+    cs._sync(dev)
+    build_s = time.perf_counter() - t0
+    img = mesher.render_image(0.0, 20.0)                 # untimed warm-up
+    out["runs"]["splat"] = []
+    for run in range(runs):
+        per_view = []
+        for i in range(cs.SPLAT_SWEEP):
+            t0 = time.perf_counter()
+            mesher.render_image(360.0 * i / cs.SPLAT_SWEEP, 20.0)
+            per_view.append(time.perf_counter() - t0)
+        row = {"view_median_s": statistics.median(per_view),
+               "view_min_s": min(per_view), "view_max_s": max(per_view),
+               "ensure_scene_s": build_s, "splats": scene.n_splats}
+        out["runs"]["splat"].append(row)
+        print(f"splat run {run}: {json.dumps(row)}", flush=True)
+    h_cam, h_cfg, _, _ = cs.heldout_view(sess, stacks[cs.HELD_OUT], calib,
+                                         proj, cs.HELD_OUT)
+    s_cfg = sr.RenderConfig(width=img.shape[1], height=img.shape[0])
+    for label, cam, cfg in (
+            ("sweep view 0", scene.camera(0.0, 20.0, s_cfg.width,
+                                          s_cfg.height), s_cfg),
+            (f"held-out stop {cs.HELD_OUT}", h_cam, h_cfg)):
+        recs, x0, y0 = sr._tile_records(
+            scene.means, scene.normals, scene.log_scales, scene.colors_sh,
+            scene.opacity, scene.valid, *sr.camera_tensors(cam, dev), cfg)
+        out["digest"][f"composite_cells {label}"] = _digest(
+            *sc.composite(*recs, x0, y0, cfg.tile))
+        timed(f"composite_cells {label}",
+              lambda: sc.composite(*recs, x0, y0, cfg.tile), 200)
+
+
+def cleanup_path(out, runs, dev, cs, proj, timed) -> None:
+    """One walled 1080p stop through the cleanup path to a depth-10 STL,
+    warm-up + ``runs`` timed runs; then the brick kernel on the path's own
+    two inputs (kept in the warm-up run)."""
+    import tempfile
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        read_ply,
+        write_ply,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+        meshing,
+        pipeline,
+        synthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel as bk,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    h, w = proj.height, proj.width
+    rig = synthetic.default_calibration(h, w, proj)
+    stack = cs.render_stop(synthetic.rotated_scene(cs.headline_scene(700.0),
+                                                   0.0), rig, h, w, proj)
+    calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
+    real = bk.brick_knn_cells
+    kept = []
+
+    def keep(bricks, nbr, nnb, k, exclude_self):
+        kept.append((bricks, nbr, nnb, k, exclude_self))
+        return real(bricks, nbr, nnb, k, exclude_self)
+
+    keep.launches = 0   # the wrapper counts through its module's name
+
+    out["runs"]["cleanup"] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in range(runs + 1):
+            bk.brick_knn_cells = keep if run == 0 else real
+            cs._sync(dev)
+            t0 = time.perf_counter()
+            cloud = pipeline.to_point_cloud(pipeline.reconstruct(
+                stack, calib, proj.col_bits, proj.row_bits, device=dev))
+            write_ply(os.path.join(tmp, "stop.ply"), cloud)
+            cloud = read_ply(os.path.join(tmp, "stop.ply"))
+            bg = merge.remove_background(cloud, device=dev)
+            clean = merge.remove_outliers(bg, device=dev)
+            mesh = meshing.reconstruct_stl(clean, os.path.join(tmp, "m.stl"),
+                                           depth=10, device=dev)
+            cs._sync(dev)
+            wall = time.perf_counter() - t0
+            bk.brick_knn_cells = real
+            if run == 0:
+                continue
+            row = {"cleanup_wall_s": wall, "points": len(clean),
+                   "faces": len(mesh.faces)}
+            out["runs"]["cleanup"].append(row)
+            print(f"cleanup run {run}: {json.dumps(row)}", flush=True)
+    for bricks, nbr, nnb, k, excl in kept:
+        label = f"brick_knn_cells cleanup {bricks.shape[0]} cells k={k}"
+        out["digest"][label] = _digest(*real(bricks, nbr, nnb, k, excl))
+        timed(label, lambda: real(bricks, nbr, nnb, k, excl), 20)
 
 
 def main() -> int:
@@ -173,7 +348,10 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", metavar="TREE",
                     help="OLD and NEW: roots of the two trees")
     ap.add_argument("--runs", type=int, default=2,
-                    help="timed runs of the ring and mesh a turn")
+                    help="timed runs of each path a turn")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated paths a turn runs, of "
+                         f"{', '.join(PATHS)} (the seeded kernels always)")
     ap.add_argument("--measure", action="store_true",
                     help="one turn, from the root of the tree measured")
     args = ap.parse_args()
@@ -186,8 +364,8 @@ def main() -> int:
             return 1
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        print("turn " + json.dumps(measure(args.runs,
-                                           torch.device("cuda", 0))),
+        print("turn " + json.dumps(measure(args.runs, torch.device("cuda", 0),
+                                           args.paths.split(","))),
               flush=True)
         return 0
     if len(args.trees) != 2:
@@ -198,8 +376,8 @@ def main() -> int:
                         ("old", old)):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--measure",
-             "--runs", str(args.runs)], cwd=tree, capture_output=True,
-            text=True, timeout=1800)
+             "--runs", str(args.runs), "--paths", args.paths], cwd=tree,
+            capture_output=True, text=True, timeout=1800)
         sys.stdout.write(proc.stdout)
         sys.stderr.write(proc.stderr[-4000:])
         got = [line for line in proc.stdout.splitlines()
@@ -229,19 +407,22 @@ def main() -> int:
               f"{turns[0]['kernels'].get(label, {}).get('kernels_a_call')}, "
               f"new {turns[1]['kernels'].get(label, {}).get('kernels_a_call')}",
               flush=True)
-    for key in turns[0]["runs"][0]:
-        per = [[round(r[key], 4) for r in t["runs"]] for t in turns]
-        o = mean("old", lambda t: sum(r[key] for r in t["runs"])
-                 / len(t["runs"]))
-        n = mean("new", lambda t: sum(r[key] for r in t["runs"])
-                 / len(t["runs"]))
-        print(f"{key}: turns old/new/new/old {per}; mean old {o:.4f}, new "
-              f"{n:.4f}", flush=True)
-    print(f"sweeps by shape: old {turns[0]['sweeps']}, new "
-          f"{turns[1]['sweeps']}", flush=True)
+    for path, rows in turns[0]["runs"].items():
+        for key in rows[0]:
+            per = [[round(r[key], 6) for r in t["runs"][path]]
+                   for t in turns]
+            o = mean("old", lambda t: sum(r[key] for r in t["runs"][path])
+                     / len(t["runs"][path]))
+            n = mean("new", lambda t: sum(r[key] for r in t["runs"][path])
+                     / len(t["runs"][path]))
+            print(f"{path} {key}: turns old/new/new/old {per}; mean old "
+                  f"{o:.6f}, new {n:.6f}", flush=True)
+    if "sweeps" in turns[0]:
+        print(f"sweeps by shape: old {turns[0]['sweeps']}, new "
+              f"{turns[1]['sweeps']}", flush=True)
     same = all(t["digest"] == turns[0]["digest"] for t in turns)
-    print(f"kernel outputs on the seeded operands equal in every turn: "
-          f"{same} ({turns[0]['digest']})", flush=True)
+    print(f"kernel outputs equal in every turn: {same} "
+          f"({turns[0]['digest']})", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60)

@@ -54,8 +54,8 @@ _SIGNATURES = {
     # bricks, nbr, nnb, cells, k, exclude_self, out_d, out_i, stream
     "sl_brick_knn": (_P, _P, _P, _L, _I, _I, _P, _P, _P),
     # u, v, ca, cb, cc, cr, cg, cbl, opa, ok, x0, y0, rgb_out, a_out, nt, k,
-    # tile, stream
-    "sl_composite_cells": (*(_P,) * 14, _L, _L, _I, _P),
+    # tile, ok_is_bool, stream
+    "sl_composite_cells": (*(_P,) * 14, _L, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -106,9 +106,9 @@ def composite(u, v, ca, cb, cc, cr, cg, cbl, opa, ok, x0, y0, tile: int):
     float32 tile origins, the tile side ``tile`` (tile² ≤ 1024) →
     ((NT, tile², 3) premultiplied colour, (NT, tile²) alpha).
 
-    A CUDA tensor launches ``sl_composite_cells`` (``csrc/composite.cu``)
-    and raises if it cannot; only a CPU tensor takes
-    :func:`composite_reference`. Inputs that require gradients raise on
+    A CUDA tensor launches ``sl_composite_cells`` (``csrc/composite.cu``),
+    which reads ``ok`` at its own dtype, and raises if it cannot; only a
+    CPU tensor takes :func:`composite_reference`. Inputs that require gradients raise on
     every device: the kernel has no backward."""
     planes = (u, v, ca, cb, cc, cr, cg, cbl, opa, ok)
     tile = int(tile)
@@ -117,7 +117,6 @@ def composite(u, v, ca, cb, cc, cr, cg, cbl, opa, ok, x0, y0, tile: int):
         return composite_reference(*planes, x0, y0, tile)
     if u.device.type != "cuda":
         raise ValueError(f"composite has no kernel for {u.device}")
-    planes = planes[:9] + (ok.to(torch.float32),)
     if not all(t.is_contiguous() for t in (*planes, x0, y0)):
         raise ValueError("composite needs contiguous operands")
     nt, k = u.shape
@@ -134,7 +133,8 @@ def composite(u, v, ca, cb, cc, cr, cg, cbl, opa, ok, x0, y0, tile: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sl_composite_cells(
             *(t.data_ptr() for t in planes), x0.data_ptr(), y0.data_ptr(),
-            rgb.data_ptr(), alpha.data_ptr(), nt, k, tile, stream)
+            rgb.data_ptr(), alpha.data_ptr(), nt, k, tile,
+            int(ok.dtype == torch.bool), stream)
     build.check(err, "sl_composite_cells")
     composite.launches += 1
     return rgb, alpha

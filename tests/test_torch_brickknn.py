@@ -212,6 +212,64 @@ def test_brick_knn_cells_plain_semantics():
                 assert np.all(i[cell, q, m:] == -1)
 
 
+def test_brick_knn_cells_plain_ignores_neighbour_order():
+    """The result is a total order over (d², id), so any order of a cell's
+    present neighbour bricks gives the same bits: the kernel path's inputs
+    of the surface and the clump, each cell's first ``nnb`` entries
+    shuffled."""
+    rng = np.random.default_rng(5)
+    for name in ("surface", "clump"):
+        pts, _ = _cloud(name)
+        bricks, nbr, nnb, _, _ = brickknn_kernel.kernel_inputs(
+            torch.tensor(pts), torch.ones(len(pts), dtype=torch.bool), K,
+            140, len(pts) // 8 + 1024)
+        shuffled = nbr.numpy().copy()
+        for c, n in enumerate(nnb.numpy()):
+            shuffled[c, :n] = rng.permutation(shuffled[c, :n])
+        for ex in (False, True):
+            d0, i0 = brickknn_kernel.brick_knn_cells(bricks, nbr, nnb, K, ex)
+            d1, i1 = brickknn_kernel.brick_knn_cells(
+                bricks, torch.from_numpy(shuffled), nnb, K, ex)
+            assert torch.equal(d0.view(torch.int32), d1.view(torch.int32))
+            assert torch.equal(i0, i1)
+
+
+def test_neighbor_table_nearest_first():
+    """Each occupied cell lists exactly its occupied 3³ neighbours (the set
+    and the count a brute-force lookup finds), the cell itself first, then
+    its face, edge and corner neighbours; a cell past the occupied ones
+    lists none."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops.gridknn import (
+        _BIG,
+        _BITS,
+        _DELTAS,
+    )
+
+    rng = np.random.default_rng(8)
+    cells = {tuple(c) for c in rng.integers(0, 6, (120, 3))}
+    cells |= {(0, 0, 0), (5, 5, 5)}              # the edges of the grid
+    order = sorted(cells, key=lambda c: (c[0] << 2 * _BITS)
+                   | (c[1] << _BITS) | c[2])
+    m_cells = len(order) + 4
+    ucid = np.full(m_cells, _BIG, np.int32)
+    ucid[:len(order)] = [(x << 2 * _BITS) | (y << _BITS) | z
+                         for x, y, z in order]
+    nbr, nnb = brickknn_kernel._neighbor_table(torch.from_numpy(ucid),
+                                               m_cells)
+    nbr, nnb = nbr.numpy(), nnb.numpy()
+    rank = {c: r for r, c in enumerate(order)}
+    for r, (x, y, z) in enumerate(order):
+        want = {rank[(x + dx, y + dy, z + dz)] for dx, dy, dz in _DELTAS
+                if (x + dx, y + dy, z + dz) in rank}
+        got = nbr[r, :nnb[r]]
+        assert nnb[r] == len(want) and set(got) == want, r
+        assert got[0] == r
+        ring = [sum(a != b for a, b in zip(order[g], (x, y, z)))
+                for g in got]
+        assert ring == sorted(ring), (r, ring)
+    assert np.all(nnb[len(order):] == 0)
+
+
 def test_brick_knn_dispatch_and_fit():
     """``use_pallas=None`` takes the dense form for a CPU tensor; forcing
     the kernel path outside its fit raises, as in the JAX package."""

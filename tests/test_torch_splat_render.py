@@ -198,6 +198,47 @@ def test_plain_composite_ignores_masked_records(rng):
     assert torch.equal(out[0][1], out[1][1])
 
 
+def test_composite_bool_and_float_ok_agree(rng):
+    """The wrapper takes ``ok`` as bool or as float 0/1 (the kernel reads
+    either at its own dtype): the same pixels, bit for bit."""
+    recs, ok, x0, y0 = _composite_inputs(rng)
+    args = [torch.from_numpy(a) for a in recs]
+    org = [torch.from_numpy(x0), torch.from_numpy(y0)]
+    as_bool = sc.composite(*args, torch.from_numpy(ok), *org, 8)
+    as_float = sc.composite(*args, torch.from_numpy(ok.astype(np.float32)),
+                            *org, 8)
+    assert torch.equal(as_bool[0], as_float[0])
+    assert torch.equal(as_bool[1], as_float[1])
+
+
+def test_plain_composite_ignores_the_tail_after_the_last_member(rng):
+    """The kernel stops folding at a tile's last member; the plain version
+    agrees: NaN or garbage in the records after it, and a tile whose only
+    member is its last slot or that has none, give the pixels of the
+    clean records."""
+    nt, k = 9, 16
+    recs, ok, x0, y0 = _composite_inputs(rng, nt=nt, k=k)
+    ok[:, 10:] = False
+    ok[1] = False
+    ok[1, k - 1] = True                  # the only member in the last slot
+    ok[2] = False                        # no member
+    dirty = [a.copy() for a in recs]
+    for a in dirty:
+        a[:, 10:][~ok[:, 10:]] = np.nan
+        a[1, :k - 1] = 1e30
+        a[2] = np.nan
+    out = []
+    for rs in (recs, dirty):
+        args = [torch.from_numpy(a) for a in rs] + [
+            torch.from_numpy(ok), torch.from_numpy(x0), torch.from_numpy(y0)]
+        out.append(sc.composite(*args, 8))
+    assert torch.isfinite(out[1][0]).all() and torch.isfinite(out[1][1]).all()
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert float(out[1][1][1].max()) > 0.0          # the last slot is drawn
+    assert float(out[1][1][2].abs().max()) == 0.0   # nothing in tile 2
+
+
 def test_composite_wrapper_checks_its_operands():
     z = torch.zeros((4, 8))
     org = torch.zeros(4)
