@@ -17,11 +17,13 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build of the CUDA kernels from ``csrc/`` (one ``nvcc -c`` per source, all
    started together, then one link), with its time;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and at ragged ones (``nearest_one`` and ``matvec_band``
-   bit for bit), then timed beside its bound, its plain version and, where
-   one exists, a library yardstick: with CUDA events, and by the profiler
-   where the kernel is shorter than its wrapper's host work (the composite,
-   ``nearest_one`` and ``matvec_band`` print both);
+   paths' shapes and at ragged ones (``nearest_one``, ``matvec_band`` and
+   ``classify_bricks`` bit for bit), then timed beside its bound, its plain
+   version and, where one exists, a library yardstick: with CUDA events,
+   and by the profiler where the kernel is shorter than its wrapper's host
+   work (the composite, ``nearest_one``, ``matvec_band`` and
+   ``classify_bricks`` print both; the classify phase around
+   ``classify_bricks`` also its pieces and its peak memory);
 4. the main path at full size — 24 stops × 15°, 1080×1920 camera, 1920×1080
    projector, 46 frames (the repository's headline 360° configuration) —
    through ``scan_stacks_to_cloud``, then ``mesh_360`` of the merged cloud
@@ -34,9 +36,10 @@ Phases, in order; any failure exits non-zero before the result line:
    and must repeat bit for bit: poses, merged points, colours and normals,
    the CG iteration count, the launch counts, mesh vertices and faces; a
    run whose results differ fails. ``nearest_one`` is then checked and
-   timed on the 360° path's own sweeps, by shape, and ``matvec_band`` on
-   the mesh path's own band (``scripts/torch_compare_trees.py`` times two
-   trees of the port against each other with the same helpers);
+   timed on the 360° path's own sweeps, by shape, ``matvec_band`` on the
+   mesh path's own band and ``classify_bricks`` on the band its extraction
+   classified (``scripts/torch_compare_trees.py`` times two trees of the
+   port against each other with the same helpers);
 5. the streaming path on the same 24-stop ring through
    ``IncrementalSession.add_stop`` ×24 → ``finalize(overlap=True)``:
    session T in the default ``"tsdf"`` lane (TSDF previews after every stop,
@@ -233,6 +236,74 @@ def cg_matvecs(dev):
         yield seen
     finally:
         poisson_sparse.matvec_band = real
+
+
+@contextlib.contextmanager
+def corner_phases():
+    """While open, ``marching_device._phase_corners`` (the device
+    extractor's classify pass, once a mesh) is wrapped: the yielded dict
+    keeps the first call's operands under ``"band"`` (chi, nbr,
+    block_valid, iso)."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_device,
+    )
+
+    seen = {"band": None}
+    real = marching_device._phase_corners
+
+    def captured(chi, nbr, block_valid, iso):
+        if seen["band"] is None:
+            seen["band"] = (chi, nbr, block_valid, iso)
+        return real(chi, nbr, block_valid, iso)
+
+    marching_device._phase_corners = captured
+    try:
+        yield seen
+    finally:
+        marching_device._phase_corners = real
+
+
+def phase_timing(chi, nbr, bv, iso, label: str, reps: int = 20) -> dict:
+    """The classify phase ``marching_device._phase_corners`` on one band:
+    its device time (the profiler, every kernel a call launches), its
+    classify kernel's alone, a call's (CUDA events), the pieces the plain
+    phase is made of (``_nb8_table``, the plain ``corner_frame``, the
+    count's ``active.sum``) and the phase's peak device memory above what
+    was allocated before it, beside its outputs' bytes."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_device as md,
+    )
+
+    def phase():
+        return md._phase_corners(chi, nbr, bv, iso)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c9, active, count = phase()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = sum(t.numel() * t.element_size() for t in (c9, active, count))
+    t = {"peak_bytes": peak, "output_bytes": outputs, "count": int(count)}
+    t["phase_ms"], seen = profile_calls(phase, reps)
+    t["kernels_a_call"] = {k[:40]: v / (2 * reps) for k, v in seen.items()}
+    t["kernel_ms"], _ = profile_calls(phase, reps, ("classify",))
+    t["call_ms"] = cuda_ms(phase, 2 * reps)
+    t["nb8_ms"], _ = profile_calls(lambda: md._nb8_table(nbr), reps)
+    t["frame_ms"], _ = profile_calls(lambda: md.corner_frame(chi, nbr), reps)
+    t["sum_ms"], _ = profile_calls(lambda: active.sum(dtype=torch.int32),
+                                   reps)
+    print(f"classify phase on the {label} (M={chi.shape[0]}, {t['count']} "
+          f"active cells): {t['phase_ms']:.4f} ms on the device, "
+          f"{t['call_ms']:.4f} ms a call; its classify kernel "
+          f"{t['kernel_ms']:.4f} ms; apart: _nb8_table {t['nb8_ms']:.4f}, "
+          f"the plain corner_frame {t['frame_ms']:.4f}, active.sum "
+          f"{t['sum_ms']:.4f} ms; peak {peak / 1e6:.1f} MB above the "
+          f"operands, outputs {outputs / 1e6:.1f} MB; kernels a call "
+          f"{t['kernels_a_call']}", flush=True)
+    return t
 
 
 def cg_iteration_ms(events) -> float:
@@ -501,69 +572,137 @@ def check_matvec(dev, band):
                 bound_ms=t["bound_ms"], bound_by="bytes", library_ms=None)
 
 
-def check_classify(dev, band):
+def classify_agrees(chi, nb8, iso, bv, label: str) -> None:
+    """``classify_bricks`` against its plain version on one band: the frame
+    bit for bit, the mask and the count exactly."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_classify as mc,
+    )
+
+    c9, act, n = mc.classify_bricks(chi, nb8, iso, bv)
+    rc9, ract, rn = mc.classify_bricks_reference(chi, nb8, iso, bv)
+    torch.cuda.synchronize()
+    same = {"frame": torch_equal_bits(c9, rc9),
+            "active": torch.equal(act, ract), "count": int(n) == int(rn)}
+    diff = int((act != ract).sum())
+    print(f"classify_bricks {label} (M={chi.shape[0]}): {int(rn)} active "
+          f"cells; bit-equal to the plain version {same}, max |kernel - "
+          f"plain| = {int(diff > 0)} ({diff} cells differ)", flush=True)
+    if not all(same.values()):
+        fail(f"classify_bricks disagrees with its plain version ({label})")
+
+
+def classify_tables(dev, g, m: int):
+    """Hand-made (m, 8) neighbour tables, column 0 the brick itself: random
+    neighbours with a fifth absent; brick b without neighbour 1 + b mod 7
+    (every face, edge and corner absent in turn) on top; and every
+    neighbour absent."""
+    import torch
+
+    own = torch.arange(m, device=dev)[:, None]
+    rand = torch.randint(0, m, (m, 7), device=dev, generator=g)
+    rand = torch.where(torch.rand((m, 7), device=dev, generator=g) < 0.2,
+                       m, rand)
+    turn = torch.arange(7, device=dev)[None, :] == (own % 7)
+    return (("random neighbours, a fifth absent",
+             torch.cat([own, rand], 1)),
+            ("one neighbour absent in turn", torch.cat(
+                [own, torch.where(turn, m, rand)], 1)),
+            ("every neighbour absent", torch.cat(
+                [own, torch.full((m, 7), m, device=dev)], 1)))
+
+
+def classify_timing(chi, nb8, iso, bv, label: str) -> dict:
+    """``classify_bricks`` on one band: its kernel's device time (the
+    profiler), a call's (CUDA events), the plain version's, the byte bound,
+    and the ``max_pool3d`` any/all yardstick on the classify half."""
     import torch
     import torch.nn.functional as F
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         marching_classify as mc,
     )
+
+    ms, _ = profile_calls(lambda: mc.classify_bricks(chi, nb8, iso, bv), 50,
+                          ("classify_bricks",))
+    call_ms = cuda_ms(lambda: mc.classify_bricks(chi, nb8, iso, bv), 100)
+    plain_ms = cuda_ms(
+        lambda: mc.classify_bricks_reference(chi, nb8, iso, bv), 5)
+    c9, act, _ = mc.classify_bricks(chi, nb8, iso, bv)
+    m = chi.shape[0]
+
+    def pooled():
+        inside = (c9 > iso).to(torch.float32).view(m, 1, 9, 9, 9)
+        any_in = F.max_pool3d(inside, kernel_size=2, stride=1)
+        all_in = -F.max_pool3d(-inside, kernel_size=2, stride=1)
+        return ((any_in > 0.5) & (all_in < 0.5)).view(m, 512) & bv[:, None]
+
+    if not torch.equal(pooled(), act):
+        fail("the max_pool3d yardstick computes another function")
+    lib_ms = cuda_ms(pooled, 20)
+    # Own brick, nb8 row and valid flag in, frame and mask out; the faces
+    # read from neighbours hit L2 (those bricks are read anyway).
+    nbytes = m * (2048 + nb8.element_size() * 8 + 1 + 729 * 4 + 512) + 8
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"classify_bricks {label} M={m}: {ms:.4f} ms on the device, "
+          f"{call_ms:.4f} ms a call, bound {bound_ms:.4f} ms (bytes, "
+          f"{nbytes / 1e6:.1f} MB; {bound_ms / ms:.2f} of it), plain "
+          f"{plain_ms:.3f} ms, library max_pool3d any/all on the classify "
+          f"half alone {lib_ms:.3f} ms (no single PyTorch call builds the "
+          f"frame and classifies it)", flush=True)
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=lib_ms)
+
+
+def check_classify(dev, band):
+    """``classify_bricks`` (frame + mask + count in one launch) bit-equal to
+    its plain version on the sphere band at iso 0 and on a ragged prefix of
+    it, and on random bricks at an iso of scan scale ± 1 ulp and at iso 0
+    among subnormals, each over three hand-made neighbour tables; then timed
+    on the band, and the classify phase beside it."""
+    import torch
+
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
-        marching_device,
+        marching_device as md,
     )
 
     rhs, _, nbr, bv = band
     g = torch.Generator(device=dev)
     g.manual_seed(4)
-    c9 = marching_device.corner_frame(rhs, nbr)
     iso0 = torch.zeros((), device=dev)
-    cases = [("band corner frame, iso 0", c9, iso0, bv)]
-    # Random frames whose values sit at iso and within one ulp of it, with
-    # an iso of scan scale and with iso 0 among subnormals.
-    for label, iso in (("iso 0.0137 +- 1 ulp", 0.0137), ("iso 0 +- subnormal",
-                                                         0.0)):
+    nb8 = md._nb8_table(nbr)
+    classify_agrees(rhs, nb8, iso0, bv, "sphere band, iso 0")
+    mr = 100_003
+    classify_agrees(rhs[:mr], md._nb8_table(nbr[:mr]), iso0,
+                    bv[:mr] & (torch.rand((mr,), device=dev, generator=g)
+                               > 0.1), f"first {mr} rows, 10% invalid")
+    m = 4096
+    valid = torch.rand((m,), device=dev, generator=g) > 0.1
+    sub = torch.tensor(1e-45, device=dev)          # the least subnormal
+    for label, iso, near in (
+            ("iso 0.0137 +- 1 ulp", 0.0137, None),
+            ("iso 0 among subnormals", 0.0,
+             torch.stack([-sub, torch.zeros_like(sub), sub, 7 * sub]))):
         iso_t = torch.tensor(iso, device=dev)
-        k = torch.randint(-1, 2, (4096, 729), device=dev, generator=g)
-        vals = torch.where(k < 0, torch.nextafter(iso_t, iso_t - 1),
-                           torch.where(k > 0, torch.nextafter(iso_t, iso_t + 1),
-                                       iso_t.expand(4096, 729)))
-        valid = torch.rand((4096,), device=dev, generator=g) > 0.1
-        cases.append((label, vals.contiguous(), iso_t, valid))
-    for label, c, iso, v in cases:
-        got = mc.classify_cells(c, iso, v)
-        ref = mc.classify_cells_reference(c, iso, v)
-        torch.cuda.synchronize()
-        diff = int((got != ref).sum())
-        print(f"classify_cells {label}: {int(ref.sum())} active cells, "
-              f"max |kernel - plain| = {int(diff > 0)} ({diff} cells differ)",
-              flush=True)
-        if diff:
-            fail(f"classify_cells disagrees with its plain version ({label})")
-    m = c9.shape[0]
-    ms = cuda_ms(lambda: mc.classify_cells(c9, iso0, bv), 100)
-    plain_ms = cuda_ms(lambda: mc.classify_cells_reference(c9, iso0, bv), 5)
-
-    def pooled():
-        inside = (c9 > iso0).to(torch.float32).view(m, 1, 9, 9, 9)
-        any_in = F.max_pool3d(inside, kernel_size=2, stride=1)
-        all_in = -F.max_pool3d(-inside, kernel_size=2, stride=1)
-        return ((any_in > 0.5) & (all_in < 0.5)).view(m, 512) & bv[:, None]
-
-    if not torch.equal(pooled(), mc.classify_cells(c9, iso0, bv)):
-        fail("the max_pool3d yardstick computes another function")
-    lib_ms = cuda_ms(pooled, 20)
-    nbytes = m * (729 * 4 + 512 + 1)
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"classify_cells M={m}: {ms:.4f} ms/launch, bound {bound_ms:.4f} "
-          f"ms (bytes, {nbytes / 1e6:.1f} MB), plain {plain_ms:.3f} ms, "
-          f"library max_pool3d any/all {lib_ms:.3f} ms", flush=True)
-    return dict(name="classify_cells", route="cuda",
+        if near is None:
+            near = torch.stack([torch.nextafter(iso_t, iso_t - 1), iso_t,
+                                torch.nextafter(iso_t, iso_t + 1)])
+        chi = near[torch.randint(0, len(near), (m, 512), device=dev,
+                                 generator=g)].contiguous()
+        for table, tab in classify_tables(dev, g, m):
+            classify_agrees(chi, tab, iso_t, valid, f"{label}, {table}")
+    t = classify_timing(rhs, nb8, iso0, bv, "sphere band")
+    phase_timing(rhs, nbr, bv, iso0, "sphere band")
+    return dict(name="classify_bricks", route="cuda",
                 source="structured_light_for_3d_model_replication_tpu_torch/"
                        "csrc/classify.cu",
                 replaces="structured_light_for_3d_model_replication_tpu/ops/"
                          "marching_pallas.py:54",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=lib_ms)
+                max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by="bytes",
+                library_ms=t["library_ms"])
 
 
 def check_combine(dev):
@@ -1249,7 +1388,8 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
     mesh half (:func:`mesh_path`) follows. Returns the launch counts, the
     rendered ring (stacks, calibration, projector, scene) for the streaming
     phase, and the paths' kernel operands: ``{"nn": {(queries, keys):
-    (sweeps, operands)}, "matvec": (x, W, nbr, block_valid)}``."""
+    (sweeps, operands)}, "matvec": (x, W, nbr, block_valid), "classify":
+    (chi, nbr, block_valid, iso)}``."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.config import (
@@ -1374,11 +1514,12 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
         profile_run(lambda: scan360.scan_stacks_to_cloud(
             stacks, calib, proj.col_bits, proj.row_bits, params=params,
             device=dev))
-    mesh_launches, band = mesh_path(dev, merged, scene, profile=profile)
+    mesh_launches, band, corners = mesh_path(dev, merged, scene,
+                                             profile=profile)
     launches.update(mesh_launches)
     return (launches,
             dict(stacks=stacks, calib=calib, proj=proj, scene=scene),
-            dict(nn=sweeps, matvec=band))
+            dict(nn=sweeps, matvec=band, classify=corners))
 
 
 def surface_distance(points: np.ndarray, spheres) -> np.ndarray:
@@ -1400,8 +1541,9 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     the same cloud meshed again must give the same CG count, matvec
     launches and mesh, bit for bit; that run keeps the first matvec's
     operands (the path's band) and times the CG iterations on the device's
-    clock (CUDA events at every matvec). Returns the launch counts and the
-    band's operands (x, W, nbr, block_valid)."""
+    clock (CUDA events at every matvec) and keeps the classify phase's
+    operands. Returns the launch counts, the band's operands (x, W, nbr,
+    block_valid) and the classify phase's (chi, nbr, block_valid, iso)."""
     import tempfile
 
     import torch
@@ -1430,7 +1572,7 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     poisson_matvec.matvec_band.launches = 0
-    marching_classify.classify_cells.launches = 0
+    marching_classify.classify_bricks.launches = 0
     brickknn_kernel.brick_knn_cells.launches = 0
     splat_composite.composite.launches = 0
     timing, stats = {}, {}
@@ -1443,8 +1585,8 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         _sync(dev)
         wall = time.perf_counter() - t0
         launches = {"matvec_band": poisson_matvec.matvec_band.launches,
-                    "classify_cells":
-                        marching_classify.classify_cells.launches,
+                    "classify_bricks":
+                        marching_classify.classify_bricks.launches,
                     "brick_knn_cells":
                         brickknn_kernel.brick_knn_cells.launches,
                     "composite_cells": splat_composite.composite.launches}
@@ -1467,8 +1609,8 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     if launches["matvec_band"] != 1 + stats["cg_iters_used"]:
         fail(f"matvec_band launched {launches['matvec_band']} times, not "
              f"1 + {stats['cg_iters_used']} CG iterations")
-    if launches["classify_cells"] != 1:
-        fail(f"classify_cells launched {launches['classify_cells']} times, "
+    if launches["classify_bricks"] != 1:
+        fail(f"classify_bricks launched {launches['classify_bricks']} times, "
              "not once")
     if launches.pop("brick_knn_cells") != 0:
         fail("the mesh path launched brick_knn_cells: its cloud carries "
@@ -1486,7 +1628,7 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     _sync(dev)
     poisson_matvec.matvec_band.launches = 0
     stats2 = {}
-    with cg_matvecs(dev) as seen:
+    with cg_matvecs(dev) as seen, corner_phases() as corners:
         mesh2 = meshing.mesh_360(cloud(), os.devnull, depth=10,
                                  quantile_trim=0.0, cg_iters=100,
                                  solve_stats=stats2, device=dev)
@@ -1509,16 +1651,19 @@ def mesh_path(dev, merged, scene, profile: bool = False):
         profile_run(lambda: meshing.mesh_360(
             cloud(), os.devnull, depth=10, quantile_trim=0.0, cg_iters=100,
             device=dev))
-    return launches, seen["band"]
+    return launches, seen["band"], corners["band"]
 
 
 def path_kernel_timings(ops) -> None:
-    """``nearest_one`` at the 360° path's two most swept shapes and
-    ``matvec_band`` on the mesh path's band, with the operands those paths
-    gave them (:func:`main_path`), after the paths' counts were read."""
+    """``nearest_one`` at the 360° path's two most swept shapes,
+    ``matvec_band`` on the mesh path's band and ``classify_bricks`` (with
+    its phase) on the band its extraction classified, with the operands
+    those paths gave them (:func:`main_path`), after the paths' counts were
+    read."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_device as md,
         nn,
         poisson_matvec as pm,
     )
@@ -1544,6 +1689,11 @@ def path_kernel_timings(ops) -> None:
         fail("matvec_band disagrees with its plain version on the mesh "
              "path's band")
     matvec_timing(x, W, nbr, bv, "mesh path's band")
+    chi, nbr, bv, iso = ops["classify"]
+    nb8 = md._nb8_table(nbr)
+    classify_agrees(chi, nb8, iso, bv, "mesh path's band")
+    classify_timing(chi, nb8, iso, bv, "mesh path's band")
+    phase_timing(chi, nbr, bv, iso, "mesh path's band")
 
 
 def torch_equal_bits(a, b) -> bool:
@@ -1803,7 +1953,7 @@ def stream_path(dev, ring):
     counters = {"decode_maps": decode.decode_maps,
                 "nearest_one": nn.nearest_one,
                 "matvec_band": poisson_matvec.matvec_band,
-                "classify_cells": marching_classify.classify_cells,
+                "classify_bricks": marching_classify.classify_bricks,
                 "tsdf_combine": tsdf_combine.tsdf_combine,
                 "brick_knn_cells": brick_knn_cells,
                 "composite_cells": splat_composite.composite}
@@ -1891,10 +2041,10 @@ def stream_path(dev, ring):
         fail(f"session poisson: matvec_band launched "
              f"{launches_p['matvec_band']} times, not 1 + "
              f"{solve['cg_iters_used']}")
-    if launches_p["classify_cells"] != 1 or launches_p["tsdf_combine"] != 0:
-        fail(f"session poisson: classify_cells {launches_p['classify_cells']}"
-             f" launches (want 1), tsdf_combine "
-             f"{launches_p['tsdf_combine']} (want 0)")
+    if launches_p["classify_bricks"] != 1 or launches_p["tsdf_combine"] != 0:
+        fail(f"session poisson: classify_bricks "
+             f"{launches_p['classify_bricks']} launches (want 1), "
+             f"tsdf_combine {launches_p['tsdf_combine']} (want 0)")
     return launches_t
 
 
@@ -2016,7 +2166,7 @@ def splat_path(dev, ring):
     counters = {"decode_maps": decode.decode_maps,
                 "nearest_one": nn.nearest_one,
                 "matvec_band": poisson_matvec.matvec_band,
-                "classify_cells": marching_classify.classify_cells,
+                "classify_bricks": marching_classify.classify_bricks,
                 "tsdf_combine": tsdf_combine.tsdf_combine,
                 "brick_knn_cells": brickknn_kernel.brick_knn_cells,
                 "composite_cells": splat_composite.composite}
@@ -2230,7 +2380,7 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
     calib = make_calibration(*rig, h, w, proj.width, proj.height, device=dev)
     counters = {"brick_knn_cells": brickknn_kernel.brick_knn_cells,
                 "matvec_band": poisson_matvec.matvec_band,
-                "classify_cells": marching_classify.classify_cells,
+                "classify_bricks": marching_classify.classify_bricks,
                 "composite_cells": splat_composite.composite}
     _sync(dev)
     if dev.type == "cuda":
@@ -2319,10 +2469,10 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
              f"{launches['brick_knn_cells']} times, not 2 (outliers k = 20, "
              "normals k = 30)")
     if launches["matvec_band"] != 1 + solve.get("cg_iters_used", -1) \
-            or launches["classify_cells"] != 1:
+            or launches["classify_bricks"] != 1:
         fail(f"cleanup: matvec_band {launches['matvec_band']} launches (want"
-             f" 1 + {solve.get('cg_iters_used')}), classify_cells "
-             f"{launches['classify_cells']} (want 1)")
+             f" 1 + {solve.get('cg_iters_used')}), classify_bricks "
+             f"{launches['classify_bricks']} (want 1)")
     if launches["composite_cells"] != 0:
         fail(f"cleanup: composite_cells launched "
              f"{launches['composite_cells']} times: the path renders nothing")

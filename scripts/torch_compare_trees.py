@@ -13,9 +13,10 @@ so each turn imports its own tree's package and builds its own tree's
 kernels from its own ``csrc/``: no wrapper or C signature is copied here.
 The timing helpers, the ring and the scenes come from this script's
 repository's ``chip_smoke.py`` (``profile_calls``, ``cuda_ms``,
-``sweep_tally``, ``cg_matvecs``, ``render_stacks``, ``render_stop``,
-``scan_params``, ``splat_params``, ``heldout_view``), whose imports of the
-port resolve to the tree being measured.
+``sweep_tally``, ``cg_matvecs``, ``corner_phases``, ``phase_timing``,
+``render_stacks``, ``render_stop``, ``scan_params``, ``splat_params``,
+``heldout_view``), whose imports of the port resolve to the tree being
+measured.
 
 A turn measures, on the device (the profiler: every kernel a call
 launches) and as a call with its wrapper (CUDA events):
@@ -31,7 +32,12 @@ launches) and as a call with its wrapper (CUDA events):
   band) and ``--runs`` times timed: wall and stage seconds, fine CG
   iterations and the device time per CG iteration; then ``nearest_one``
   at the ring's two most swept shapes and ``matvec_band`` on the mesh band
-  and the sphere band;
+  and the sphere band; then the classify phase
+  (``marching_device._phase_corners``) on the mesh's own band (kept in the
+  warm-up run) and on the sphere band at iso 0: a digest of its frame,
+  mask and count, its device time, its classify kernel's, a call's, the
+  plain phase's pieces apart and its peak device memory
+  (``chip_smoke.phase_timing``);
 * ``splat``: bench config 12 on the same ring (stops 0–22 through a
   ``"splat"`` session, ``ensure_scene``), then ``--runs`` sweeps of 20
   views at 384×288, each view's wall (the median is the end-to-end line);
@@ -107,7 +113,7 @@ def measure(runs: int, dev, paths=PATHS) -> dict:
     t0 = time.perf_counter()
     build.library()
     out = {"tree": os.getcwd(), "build_s": time.perf_counter() - t0,
-           "digest": {}, "kernels": {}, "runs": {}}
+           "digest": {}, "kernels": {}, "runs": {}, "phases": {}}
 
     def timed(label, fn, reps):
         ms, seen = cs.profile_calls(fn, reps)
@@ -159,8 +165,11 @@ def measure(runs: int, dev, paths=PATHS) -> dict:
 
 def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
     """The 360° ring and its mesh, warm-up + ``runs`` timed runs, then the
-    nearest-one and matvec kernels on the path's own operands."""
+    nearest-one and matvec kernels on the path's own operands, and the
+    classify phase on the mesh's band (kept in the warm-up run) and on the
+    sphere band."""
     import numpy as np
+    import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
         PointCloud,
@@ -170,6 +179,7 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
         scan360,
     )
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_device as md,
         nn,
         poisson_matvec as pm,
     )
@@ -190,7 +200,7 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
             scan_s = time.perf_counter() - t0
         cloud = PointCloud(points=merged.points.copy(), colors=merged.colors,
                            normals=merged.normals.copy())
-        with cs.cg_matvecs(dev) as cg:
+        with cs.cg_matvecs(dev) as cg, cs.corner_phases() as corners:
             t0 = time.perf_counter()
             meshing.mesh_360(cloud, os.devnull, depth=10, quantile_trim=0.0,
                              cg_iters=100, timing=mtiming, solve_stats=stats,
@@ -198,7 +208,7 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
             cs._sync(dev)
             mesh_s = time.perf_counter() - t0
         if run == 0:
-            sweeps, band = tally, cg["band"]
+            sweeps, band, mesh_band = tally, cg["band"], corners["band"]
             continue
         row = {"scan_wall_s": scan_s, "mesh_wall_s": mesh_s,
                **{f"scan {k}": v for k, v in timing.items()},
@@ -215,6 +225,15 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
         timed(f"nearest_one ring sweep {m}x{n}",
               lambda: nn.nearest_one(q, kt, p2v), 200)
     timed("matvec_band mesh band", lambda: pm.matvec_band(*band), 50)
+    del band
+    rhs, _, nbr, bv = cs.sphere_band(dev)
+    for label, (chi, nb, v, iso) in (
+            ("mesh band", mesh_band),
+            ("sphere band", (rhs, nbr, bv, torch.zeros((), device=dev)))):
+        c9, active, count = md._phase_corners(chi, nb, v, iso)
+        out["digest"][f"classify phase {label}"] = _digest(c9, active, count)
+        del c9, active, count
+        out["phases"][label] = cs.phase_timing(chi, nb, v, iso, label)
 
 
 def splat_path(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
@@ -417,6 +436,18 @@ def main() -> int:
                      / len(t["runs"][path]))
             print(f"{path} {key}: turns old/new/new/old {per}; mean old "
                   f"{o:.6f}, new {n:.6f}", flush=True)
+    for label in turns[0]["phases"]:
+        for key in ("phase_ms", "call_ms", "kernel_ms", "nb8_ms", "frame_ms",
+                    "sum_ms", "peak_bytes", "output_bytes", "count"):
+            per = [t["phases"][label][key] for t in turns]
+            o = mean("old", lambda t: t["phases"][label][key])
+            n = mean("new", lambda t: t["phases"][label][key])
+            print(f"classify phase {label} {key}: turns old/new/new/old "
+                  f"{per}; mean old {o:.4f}, new {n:.4f}, old/new "
+                  f"{o / n:.3f}", flush=True)
+        print(f"classify phase {label}, kernels a call: old "
+              f"{turns[0]['phases'][label]['kernels_a_call']}, new "
+              f"{turns[1]['phases'][label]['kernels_a_call']}", flush=True)
     if "sweeps" in turns[0]:
         print(f"sweeps by shape: old {turns[0]['sweeps']}, new "
               f"{turns[1]['sweeps']}", flush=True)

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "sl_nearest_one": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P),
     # x, W, nbr, block_valid, out, M, stream
     "sl_matvec_band": (_P, _P, _P, _P, _P, _L, _P),
-    # c9, iso, block_valid, active, M, stream
-    "sl_classify_cells": (_P, _P, _P, _P, _L, _P),
+    # chi, nb8, iso, block_valid, c9, active, count, M, stream
+    "sl_classify_bricks": (*(_P,) * 7, _L, _P),
     # tsdf, weight, rgb, num, den, rgbnum, tsdf_out, weight_out, rgb_out,
     # n, max_weight, stream
     "sl_tsdf_combine": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L,

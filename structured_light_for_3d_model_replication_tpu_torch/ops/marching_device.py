@@ -7,12 +7,13 @@ from classification to the welded mesh, so the only data that reaches the
 host is the welded result — unique vertices and faces, plus three count
 reads. Readback is tallied per call in :data:`LAST_READBACK`.
 
-1. **corners + classification**: the (M, 729) corner frame of each brick
-   from the flat bricks and the face-neighbour table (diagonal neighbours
-   by chaining face hops; absent neighbours clamp to the own-brick face like
-   the host's ``nb_vals``), then :func:`.marching_classify.classify_cells`
-   — the CUDA kernel ``csrc/classify.cu`` on the card — marks the cells
-   whose 8 corners straddle the iso level.
+1. **corners + classification**: the 8-neighbour table of each brick
+   from the face-neighbour table (diagonal neighbours by chaining face
+   hops), then :func:`.marching_classify.classify_bricks` — on the card one
+   launch of the CUDA kernel ``csrc/classify.cu`` — builds the (M, 729)
+   corner frame of each brick (absent neighbours clamp to the own-brick
+   face like the host's ``nb_vals``), marks the cells whose 8 corners
+   straddle the iso level and counts them.
 2. **cell compaction** into ``K`` slots (prefix sum).
 3. **triangle emission** into ``T`` slots: interpolate each triangle's three
    edge crossings and orient it from inside (χ > iso) to outside with a
@@ -35,36 +36,19 @@ import torch
 
 from ..io.stl import TriangleMesh
 from .marching import _CORNERS, _TETS
-from .marching_classify import _CIDX, classify_cells
-
-BS = 8
-_C9 = BS + 1          # corner frame edge: 8 voxels + the +face plane
-_V = BS ** 3          # 512 cells per block
-
-# --- static index tables -------------------------------------------------
-#
-# Corner frame source maps: corner position (x, y, z) ∈ [0, 8]³ reads from
-# the neighbour selected by which coordinates hit 8 (the +face), at the
-# wrapped voxel, falling back to the own-brick clamp voxel when that
-# neighbour is absent.
-
-_NB_ORDER = {(0, 0, 0): 0, (1, 0, 0): 1, (0, 1, 0): 2, (0, 0, 1): 3,
-             (1, 1, 0): 4, (1, 0, 1): 5, (0, 1, 1): 6, (1, 1, 1): 7}
-
-
-def _corner_maps():
-    x, y, z = np.meshgrid(np.arange(_C9), np.arange(_C9), np.arange(_C9),
-                          indexing="ij")
-    x, y, z = x.reshape(-1), y.reshape(-1), z.reshape(-1)
-    case = np.array([_NB_ORDER[(int(a == BS), int(b == BS), int(c == BS))]
-                     for a, b, c in zip(x, y, z)], np.int64)
-    src = ((x % BS) * BS + (y % BS)) * BS + (z % BS)
-    clamp = ((np.minimum(x, BS - 1) * BS + np.minimum(y, BS - 1)) * BS
-             + np.minimum(z, BS - 1))
-    return case, src.astype(np.int64), clamp.astype(np.int64)
-
-
-_CASE9, _SRC9, _CLAMP9 = _corner_maps()
+# The frame tables live with the classify pass; ``fusion/extract.py`` reads
+# them (and ``_t``) from here.
+from .marching_classify import (  # noqa: F401
+    _CASE9,
+    _CIDX,
+    _CLAMP9,
+    _SRC9,
+    _V,
+    BS,
+    _t,
+    classify_bricks,
+    corner_frame_reference,
+)
 
 # Cell → its own (x, y, z) voxel coords, for world positioning.
 _CELL_XYZ = np.stack([np.arange(_V) // (BS * BS), (np.arange(_V) // BS) % BS,
@@ -104,8 +88,8 @@ _NTRI, _EP = _tet_tables()
 # makes every triangle's normal point from inside (χ > iso) to outside.
 _EP_CUBE = np.zeros((6, 16, 2, 3, 2), np.int64)
 _FLIP = np.zeros((6, 16, 2), bool)
-for _t in range(6):
-    _P4 = _CORNERS[_TETS[_t]].astype(np.float64)
+for _tet in range(6):
+    _P4 = _CORNERS[_TETS[_tet]].astype(np.float64)
     for _case in range(16):
         _ins = np.array([(_case >> _i) & 1 for _i in range(4)], bool)
         if not (0 < _ins.sum() < 4):
@@ -119,9 +103,11 @@ for _t in range(6):
                 _tt = (0.5 - _V4[_a]) / (_V4[_b] - _V4[_a])
                 _verts.append(_P4[_a] + _tt * (_P4[_b] - _P4[_a]))
             _n = np.cross(_verts[1] - _verts[0], _verts[2] - _verts[0])
-            _FLIP[_t, _case, _j] = float(np.dot(_n, _out_cen - _in_cen)) < 0.0
+            _FLIP[_tet, _case, _j] = float(
+                np.dot(_n, _out_cen - _in_cen)) < 0.0
             for _v in range(3):
-                _EP_CUBE[_t, _case, _j, _v] = _TETS[_t][_EP[_case, _j, _v]]
+                _EP_CUBE[_tet, _case, _j, _v] = \
+                    _TETS[_tet][_EP[_case, _j, _v]]
 # Every edge from its lower cube corner: the crossing is then computed the
 # same way from every tet that shares the edge, so shared vertices are
 # bit-identical and the weld is exact. Winding order is untouched.
@@ -145,10 +131,6 @@ def _pull(name: str, t: torch.Tensor) -> np.ndarray:
     out = t.cpu().numpy()
     LAST_READBACK[name] = LAST_READBACK.get(name, 0) + out.nbytes
     return out
-
-
-def _t(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(a).to(dev)
 
 
 def _compact(mask: torch.Tensor, cap: int) -> torch.Tensor:
@@ -180,22 +162,16 @@ def _nb8_table(nbr: torch.Tensor) -> torch.Tensor:
 
 
 def corner_frame(chi: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-    """(M, 512) bricks + (M, 6) neighbour slots → (M, 729) corner frame:
-    each brick's 9³ corners, the +faces read from the neighbours and
-    clamped to the own face where a neighbour is absent."""
-    m = chi.shape[0]
-    dev = chi.device
-    rows = _nb8_table(nbr)[:, _t(_CASE9, dev)]                 # (M, 729)
-    chi_pad = torch.cat([chi, chi.new_zeros((1, _V))])
-    vals = chi_pad.reshape(-1)[rows * _V + _t(_SRC9, dev)]
-    return torch.where(rows < m, vals, chi[:, _t(_CLAMP9, dev)])
+    """(M, 512) bricks + (M, 6) neighbour slots → (M, 729) corner frame,
+    the plain version (the extractor's own pass builds it in
+    :func:`.marching_classify.classify_bricks`)."""
+    return corner_frame_reference(chi, _nb8_table(nbr))
 
 
 def _phase_corners(chi, nbr, block_valid, iso):
-    """Corner frame (M, 729), active-cell mask (M, 512) and its count."""
-    c9 = corner_frame(chi, nbr)
-    active = classify_cells(c9, iso, block_valid)
-    return c9, active, active.sum(dtype=torch.int32)
+    """Corner frame (M, 729), active-cell mask (M, 512) and its count, in
+    one launch on the card."""
+    return classify_bricks(chi, _nb8_table(nbr), iso, block_valid)
 
 
 def _phase_count(c9, cell_ids, iso):
