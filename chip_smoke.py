@@ -7,7 +7,7 @@ the cleanup path of a single capture, with its CUDA kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
-    python3 chip_smoke.py --profile        # full run + a profiled main path
+    python3 chip_smoke.py --profile        # full run + profiled 360° paths
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -25,21 +25,39 @@ Phases, in order; any failure exits non-zero before the result line:
    ``classify_bricks`` print both; the classify phase around
    ``classify_bricks`` also its pieces and its peak memory);
 4. the main path at full size — 24 stops × 15°, 1080×1920 camera, 1920×1080
-   projector, 46 frames (the repository's headline 360° configuration) —
-   through ``scan_stacks_to_cloud``, then ``mesh_360`` of the merged cloud
-   at depth 10 into a temporary STL (bench.py config 6 settings); each half
-   with its kernels' launch counters zeroed before and read after; stage
-   times, peak memory, the merged cloud and every pose against the
-   commanded turntable angle, the band, the CG iterations, the mesh against
-   the scene's analytic surface and the STL read back. Each half then runs
-   again on the same inputs (the mesh from the first run's merged cloud)
-   and must repeat bit for bit: poses, merged points, colours and normals,
-   the CG iteration count, the launch counts, mesh vertices and faces; a
-   run whose results differ fails. ``nearest_one`` is then checked and
-   timed on the 360° path's own sweeps, by shape, ``matvec_band`` on the
+   projector, 46 frames (the repository's headline 360° ring) — through
+   ``scan_stacks_to_cloud`` in its multi-launch form, then ``mesh_360`` of
+   the merged cloud at depth 10 into a temporary STL (bench.py config 6
+   settings); each half with its kernels' launch counters zeroed before and
+   read after; stage times, peak memory, the merged cloud and every pose
+   against the commanded turntable angle, the band, the CG iterations, the
+   mesh against the scene's analytic surface and the STL read back. Each
+   half then runs again on the same inputs (the mesh from the first run's
+   merged cloud) and must repeat bit for bit: poses, merged points, colours
+   and normals, the CG iteration count, the launch counts, mesh vertices and
+   faces; a run whose results differ fails. ``nearest_one`` is then checked
+   and timed on the 360° path's own sweeps, by shape, ``matvec_band`` on the
    mesh path's own band and ``classify_bricks`` on the band its extraction
    classified (``scripts/torch_compare_trees.py`` times two trees of the
    port against each other with the same helpers);
+4b. bench config 2 as written on the same ring: the stacks staged to the
+   device untimed, then ``fused=True``, ``stop_chunk=3``,
+   ``output_cap=32_768`` — the batched ring, each of its sweeps one
+   ``nearest_one`` launch for all 23 edges — with every counter zeroed
+   before and read after (``decode_maps`` 8, ``nearest_one`` ≤ 43);
+   worst pose ≤ 2°, > 10⁴ points, poses within 0.5° and the point count
+   within 5% of the loop path's run, and a repeat bit for bit, whose
+   sweeps the batched kernel is then checked on (bit-equal to its plain
+   version and per edge to the single-edge kernel) and timed at;
+4c. bench config 2b: the same stacks streamed from host arrays through
+   ``scan_stream_to_cloud`` at ``stop_chunk=3`` (one pinned staging
+   buffer), bit-equal to the fused run; each chunk's stage + decode
+   against the 27.6 s capture dwell of three stops, the tail, and one
+   chunk's pinned against pageable copy;
+4d. the multi-launch path under ``QualityGates(min_coverage=0.02,
+   min_edge_fitness=0.2)``: bit-equal to the ungated run on the clean
+   ring; with stop 12 zeroed exactly that stop dropped and bridged
+   (13 → 11, gap 2), the survivors within 2°, the health report printed;
 5. the streaming path on the same 24-stop ring through
    ``IncrementalSession.add_stop`` ×24 → ``finalize(overlap=True)``:
    session T in the default ``"tsdf"`` lane (TSDF previews after every stop,
@@ -182,8 +200,8 @@ def profile_calls(fn, reps: int, kernels=None) -> tuple[float, dict]:
 def sweep_tally():
     """While open, registration's correspondence sweep (``_nn1``, the only
     caller of ``nearest_one``) is tallied by shape: the yielded dict maps
-    (queries, keys) to (sweeps, the first sweep's operands (q, keys_t,
-    p2v))."""
+    (queries, keys) — (edges, queries, keys) for a sweep of the batched
+    ring — to (sweeps, the first sweep's operands (q, keys_t, p2v))."""
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         nn,
         registration,
@@ -195,7 +213,7 @@ def sweep_tally():
     def tallied(moved, dst_pts, dst_valid, src_valid, table=None):
         if table is None:
             table = nn.key_table(dst_pts, dst_valid)
-        key = (moved.shape[0], table[0].shape[1])
+        key = tuple(moved.shape[:-1]) + (table[0].shape[-1],)
         count, first = sweeps.get(key, (0, (moved.contiguous(), *table)))
         sweeps[key] = (count + 1, first)
         return real(moved, dst_pts, dst_valid, src_valid, table)
@@ -319,6 +337,26 @@ def cg_iteration_ms(events) -> float:
 # ---------------------------------------------------------------------------
 
 
+def decode_timing(x, bits, ds):
+    """``decode_maps`` on stack ``x``: (kernel ms a launch by CUDA events,
+    plain ms, byte bound ms), printed."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import decode
+
+    b, f, h, w = x.shape
+    ms = cuda_ms(lambda: decode.decode_maps(x, *bits, downsample=ds), 50)
+    plain_ms = cuda_ms(
+        lambda: decode.decode_maps_reference(x, *bits, downsample=ds), 5)
+    # Planes 0 and 1 (white, black) feed only the mask, computed outside
+    # the kernel: the function reads the f - 2 bit planes.
+    nbytes = b * (f - 2) * h * w + 8 * b * h * w
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    print(f"decode_maps {tuple(x.shape)}: {ms:.4f} ms/launch, bound "
+          f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), "
+          f"{bound_ms / ms:.2f} of the bound, plain {plain_ms:.3f} ms, "
+          f"library yardstick: none", flush=True)
+    return ms, plain_ms, bound_ms
+
+
 def check_decode(dev):
     import torch
 
@@ -327,8 +365,11 @@ def check_decode(dev):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     max_err = 0
-    main = None
+    timed = []
+    # The multi-launch path's chunk (stop_chunk=6), the fused and streamed
+    # paths' chunk (stop_chunk=3), then small ragged shapes.
     for shape, bits, ds in (((6, 46, 1080, 1920), (11, 11), 1),
+                            ((3, 46, 1080, 1920), (11, 11), 1),
                             ((1, 32, 97, 161), (8, 7), 2),
                             ((3, 32, 97, 161), (8, 7), 1)):
         x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
@@ -342,20 +383,12 @@ def check_decode(dev):
         if err != 0:
             fail(f"decode_maps disagrees with its plain version at {shape}")
         max_err = max(max_err, err)
-        if main is None:
-            main = (x, bits, ds)
-    x, bits, ds = main
-    b, f, h, w = x.shape
-    ms = cuda_ms(lambda: decode.decode_maps(x, *bits, downsample=ds), 50)
-    plain_ms = cuda_ms(
-        lambda: decode.decode_maps_reference(x, *bits, downsample=ds), 5)
-    # Planes 0 and 1 (white, black) feed only the mask, computed outside
-    # the kernel: the function reads the f - 2 bit planes.
-    nbytes = b * (f - 2) * h * w + 8 * b * h * w
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    print(f"decode_maps {tuple(x.shape)}: {ms:.4f} ms/launch, bound "
-          f"{bound_ms:.4f} ms (bytes, {nbytes / 1e6:.1f} MB), plain "
-          f"{plain_ms:.3f} ms, library yardstick: none", flush=True)
+        del col, row, rcol, rrow
+        if shape[-1] == 1920:
+            timed.append(decode_timing(x, bits, ds))
+        del x
+    # The kernels line keeps the multi-launch chunk's numbers.
+    ms, plain_ms, bound_ms = timed[0]
     return dict(name="decode_maps", route="cuda",
                 source="structured_light_for_3d_model_replication_tpu_torch/"
                        "csrc/decode.cu",
@@ -385,11 +418,12 @@ def nn_operands(dev, g, m: int, n: int, invalid: float,
 
 
 def nn_timing(q, kt, p2v, label: str) -> dict:
-    """``nearest_one`` at one shape: its kernels' device time per call (the
-    profiler), the call's time with the wrapper (CUDA events), the kernels
-    one call launches (the profiler's record), its bound (8 operations per
-    pair with a valid key at the fp32 peak) and its issue-rate floor (11
-    fp32 instructions per pair, valid or not, at 128 lanes per SM)."""
+    """``nearest_one`` at one shape (a batch of edges too): its kernels'
+    device time per call (the profiler), the call's time with the wrapper
+    (CUDA events), the kernels one call launches (the profiler's record),
+    its bound (8 operations per pair with a valid key at the fp32 peak) and
+    its issue-rate floor (11 fp32 instructions per pair, valid or not, at
+    128 lanes per SM)."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import nn
@@ -399,13 +433,15 @@ def nn_timing(q, kt, p2v, label: str) -> dict:
                              ("nn1",))
     per_call = sum(seen.values()) / (2 * calls)
     call_ms = cuda_ms(lambda: nn.nearest_one(q, kt, p2v), calls)
-    m, n = q.shape[0], kt.shape[1]
+    e = q.shape[0] if q.dim() == 3 else 1
+    m, n = q.shape[-2], kt.shape[-1]
     n_valid = int(torch.isfinite(p2v).sum())
     flops = NN_FLOPS_PER_PAIR * m * n_valid
-    nbytes = 4 * (3 * m + 4 * n) + 12 * m
+    nbytes = e * (4 * (3 * m + 4 * n) + 12 * m)
     bound_ms = max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S) * 1e3
-    floor_ms = NN_INSTR_PER_PAIR * m * n / H100_FP32_LANE_OPS * 1e3
-    print(f"nearest_one {label} {m}x{n} ({n_valid} valid keys): {ms:.4f} ms "
+    floor_ms = NN_INSTR_PER_PAIR * e * m * n / H100_FP32_LANE_OPS * 1e3
+    shape = f"{e}x{m}x{n}" if q.dim() == 3 else f"{m}x{n}"
+    print(f"nearest_one {label} {shape} ({n_valid} valid keys): {ms:.4f} ms "
           f"a call on the device, {call_ms:.4f} ms a call with the wrapper; "
           f"kernels recorded over {2 * calls} calls {seen} ({per_call:.3f} "
           f"a call); bound {bound_ms:.4f} ms (operations, "
@@ -478,6 +514,104 @@ def check_nearest_one(dev):
                          "nn_pallas.py:99",
                 max_abs_err=0.0, ms=main["ms"], plain_ms=plain_ms,
                 bound_ms=main["bound_ms"], bound_by="operations",
+                library_ms=lib_ms)
+
+
+def nn_batch_operands(dev, g, e: int, m: int, n: int, invalid: float,
+                      twice: bool = False):
+    """:func:`nn_operands` for E edges, each its own queries and keys:
+    (q (E, m, 3), keys_t (E, 3, n'), p2v (E, 1, n'), points, valid)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import nn
+
+    ops = [nn_operands(dev, g, m, n, invalid, twice) for _ in range(e)]
+    q = torch.stack([o[0] for o in ops])
+    p = torch.stack([o[3] for o in ops])
+    valid = torch.stack([o[4] for o in ops])
+    kt, p2v = nn.key_table(p, valid)
+    return q, kt, p2v, p, valid
+
+
+def nn_batched_agrees(q, kt, p2v, label: str) -> None:
+    """The batched ``nearest_one`` (one launch for E edges) bit for bit
+    against its plain version (the single-edge plain version looped over
+    the edges) and, edge by edge, against the single-edge kernel."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import nn
+
+    d2, idx = nn.nearest_one(q, kt, p2v)
+    rd2, ridx = nn.nearest_one_reference(q, kt, p2v)
+    plain = torch_equal_bits(d2, rd2) and torch.equal(idx, ridx)
+    single = True
+    for k in range(q.shape[0]):
+        sd2, sidx = nn.nearest_one(q[k], kt[k], p2v[k])
+        single &= torch_equal_bits(d2[k], sd2) and torch.equal(idx[k], sidx)
+    torch.cuda.synchronize()
+    print(f"nearest_one batched {label} {tuple(q.shape[:2])} x "
+          f"{kt.shape[-1]} keys: d2 bits and idx equal to the plain version "
+          f"{plain}, to the single-edge kernel edge by edge {single}",
+          flush=True)
+    if not (plain and single):
+        fail(f"batched nearest_one disagrees ({label}): plain {plain}, "
+             f"single-edge {single}")
+
+
+def nn_batched_yardsticks(q, kt, p2v, p, valid) -> tuple[float, float]:
+    """The batched sweep's plain version (the single-edge plain version
+    looped over the edges) and the library's batched ``torch.cdist`` +
+    ``argmin`` (invalid keys moved 10 m away, so they never win), in ms
+    (CUDA events)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import nn
+
+    plain_ms = cuda_ms(lambda: nn.nearest_one_reference(q, kt, p2v), 5, 1)
+    far = torch.where(valid[..., None], p,
+                      torch.full((), 1e4, device=p.device))
+    lib_ms = cuda_ms(lambda: torch.cdist(q, far).argmin(-1), 5, 1)
+    return plain_ms, lib_ms
+
+
+def check_nearest_one_batched(dev):
+    """``nearest_one`` over a batch of edges (the batched ring's sweep)
+    bit-equal to its plain version and, per edge, to the single-edge
+    kernel: at the batched ring's two shapes (23 edges of 2048 and of 8192
+    queries against 8192 keys), a ragged 5 x 1500 x 1100 with one edge
+    without a valid key, and 3 edges whose every key appears twice; then
+    timed at 23 x 8192 x 8192 beside its bound (E × the single edge's),
+    its issue-rate floor, its plain version and the batched ``cdist`` +
+    ``argmin`` yardstick."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    cases = (("ring warm-up, 20% invalid", 23, 2048, 8192, 0.2, False),
+             ("ring, 20% invalid", 23, 8192, 8192, 0.2, False),
+             ("ragged, 20% invalid", 5, 1500, 1100, 0.2, False),
+             ("every key twice", 3, 700, 10_000, 0.0, True))
+    kept = None
+    for label, e, m, n, invalid, twice in cases:
+        ops = nn_batch_operands(dev, g, e, m, n, invalid, twice)
+        if label.startswith("ragged"):
+            ops[2][1] = float("inf")         # edge 1: no valid key
+            ops[4][1] = False
+        nn_batched_agrees(*ops[:3], label)
+        if m == 8192:
+            kept = ops
+    t = nn_timing(*kept[:3], "batched (random keys)")
+    plain_ms, lib_ms = nn_batched_yardsticks(*kept)
+    print(f"nearest_one batched 23x8192x8192: plain {plain_ms:.3f} ms, "
+          f"library torch.cdist(q, k).argmin(-1) batched {lib_ms:.3f} ms",
+          flush=True)
+    return dict(name="nearest_one_batched", route="cuda",
+                source="structured_light_for_3d_model_replication_tpu_torch/"
+                       "csrc/nn1.cu",
+                replaces="structured_light_for_3d_model_replication_tpu/ops/"
+                         "nn_pallas.py:99",
+                max_abs_err=0.0, ms=t["ms"], plain_ms=plain_ms,
+                bound_ms=t["bound_ms"], bound_by="operations",
                 library_ms=lib_ms)
 
 
@@ -1518,8 +1652,307 @@ def main_path(dev, n_stops: int, proj=None, profile: bool = False):
                                              profile=profile)
     launches.update(mesh_launches)
     return (launches,
-            dict(stacks=stacks, calib=calib, proj=proj, scene=scene),
+            dict(stacks=stacks, calib=calib, proj=proj, scene=scene,
+                 loop=(merged, np.asarray(poses), stats)),
             dict(nn=sweeps, matvec=band, classify=corners))
+
+
+def headline_params(step: float):
+    """Bench config 2 as written (``bench.py:337-380``): the 360° path's
+    settings with ``fused=True``, three stops a decode call and the output
+    compacted to 32,768 slots."""
+    import dataclasses
+
+    return dataclasses.replace(scan_params(step), fused=True, stop_chunk=3,
+                               output_cap=32_768)
+
+
+def kernel_counters():
+    """(zero, read) over every kernel's launch counter."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
+        decode,
+        nn,
+        splat_composite,
+    )
+
+    counters = {"decode_maps": decode.decode_maps,
+                "nearest_one": nn.nearest_one,
+                "brick_knn_cells": brickknn_kernel.brick_knn_cells,
+                "composite_cells": splat_composite.composite}
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {k: c.launches for k, c in counters.items()}
+
+    return zero, read
+
+
+def same_cloud(a, b) -> dict:
+    """Bit-equality of two (merged, poses) results, field by field."""
+    return {"poses": np.array_equal(a[1], b[1]),
+            "points": np.array_equal(a[0].points, b[0].points),
+            "colors": np.array_equal(a[0].colors, b[0].colors),
+            "normals": np.array_equal(a[0].normals, b[0].normals)}
+
+
+def fused_path(dev, ring, profile: bool = False):
+    """Bench config 2 as written: the 24-stop ring staged to the device
+    untimed (as the bench does), then ``scan_stacks_to_cloud`` with
+    ``fused=True`` — decode in chunks of three, the batched ring, finalize,
+    the ``output_cap`` compaction, one readback — with every launch counter
+    zeroed before and read after. Checked against the commanded angles
+    and against the loop path's run (:func:`main_path`; another program,
+    every edge from identity, so held to 0.5° and 5%), then run again,
+    which must repeat bit for bit and tallies the sweeps by shape. Returns
+    (launches, the result, the batched sweeps)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+
+    stacks, calib, proj = ring["stacks"], ring["calib"], ring["proj"]
+    params = headline_params(STEP_DEG)
+    t0 = time.perf_counter()
+    dstacks = torch.from_numpy(stacks).to(dev)
+    _sync(dev)
+    print(f"config 2: {stacks.nbytes / 1e9:.3f} GB of stacks staged to the "
+          f"device in {time.perf_counter() - t0:.3f} s (untimed set-up)",
+          flush=True)
+    zero, read = kernel_counters()
+
+    def run(**kw):
+        return scan360.scan_stacks_to_cloud(
+            dstacks, calib, proj.col_bits, proj.row_bits, params=params,
+            with_stats=True, device=dev, **kw)
+
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero()
+    t0 = time.perf_counter()
+    merged, poses, stats = run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated(dev)
+    worst = pose_error(poses, STEP_DEG)
+    fits = [e["fitness"] for e in stats["edges"]]
+    print(f"config 2 (fused=True, output_cap={params.output_cap}, "
+          f"stop_chunk={params.stop_chunk}): {len(merged)} points in "
+          f"{wall:.3f} s wall; peak device memory {peak / 2**30:.2f} GiB "
+          f"(the staged stacks included); launches {launches}; survivors "
+          f"{stats['survivors']} against output_cap {params.output_cap}; "
+          f"edge fitness min {min(fits):.4f} mean {np.mean(fits):.4f}; "
+          f"worst pose error {worst:.3f} deg", flush=True)
+    for k in range(poses.shape[0]):
+        print(f"  pose {k:2d}: {rotation_deg(poses[k][:3, :3]):8.3f} deg",
+              flush=True)
+    n = stacks.shape[0]
+    expect_decode = -(-n // params.stop_chunk)
+    if worst > 2.0:
+        fail(f"config 2: a pose is {worst:.3f} deg off its commanded angle")
+    if len(merged) <= 10_000 or merged.colors is None \
+            or merged.normals is None or not np.isfinite(merged.points).all():
+        fail(f"config 2: {len(merged)} points, colours and normals "
+             f"{merged.colors is not None}, {merged.normals is not None}")
+    if launches["decode_maps"] != expect_decode:
+        fail(f"config 2 launched decode_maps {launches['decode_maps']} "
+             f"times, not {expect_decode}")
+    if not 0 < launches["nearest_one"] <= 43:
+        fail(f"config 2 launched nearest_one {launches['nearest_one']} "
+             "times: the batched ring takes at most 43 (989 / 23)")
+    if launches["brick_knn_cells"] or launches["composite_cells"]:
+        fail(f"config 2 launched a kernel off its path: {launches}")
+    lm, lposes, _ = ring["loop"]
+    d_ang = max(abs(rotation_deg(poses[k][:3, :3])
+                    - rotation_deg(lposes[k][:3, :3])) for k in range(n))
+    geo = max(rotation_deg(poses[k][:3, :3].T.astype(np.float64)
+                           @ lposes[k][:3, :3]) for k in range(n))
+    d_count = abs(len(merged) - len(lm)) / len(lm)
+    print(f"config 2 against the loop path: pose angles within "
+          f"{d_ang:.4f} deg (geodesic {geo:.4f} deg), point count "
+          f"{len(merged)} vs {len(lm)} ({100 * d_count:.2f}%)", flush=True)
+    if d_ang > 0.5 or d_count > 0.05:
+        fail(f"config 2 strays from the loop path: {d_ang:.4f} deg, "
+             f"{100 * d_count:.2f}% points")
+    timing = {}
+    zero()
+    with sweep_tally() as sweeps:
+        again = run(timing=timing)
+    _sync(dev)
+    same = dict(same_cloud((merged, poses), again), launches=read()
+                == launches)
+    print(f"repeat config 2: bit-equal {same}; stages (s, the device "
+          f"drained at each edge): " + ", ".join(
+              f"{k}={v:.3f}" for k, v in timing.items() if k.endswith("_s"))
+          + f"; nearest_one sweeps by (edges, queries, keys): "
+          f"{ {k: v[0] for k, v in sweeps.items()} }", flush=True)
+    if not all(same.values()):
+        fail(f"config 2 gave other results on the same stacks: {same}")
+    if profile:
+        profile_run(run)
+    del dstacks
+    return launches, (merged, poses, stats), sweeps
+
+
+def stream_path_2b(dev, ring, fused):
+    """Bench config 2b: the same stacks streamed from host arrays through
+    ``scan_stream_to_cloud`` at ``stop_chunk=3`` (each chunk staged through
+    one pinned buffer and decoded), then the fused form's tail. Its poses
+    and merged cloud must be bit-equal to the fused run's. Prints each
+    chunk's stage + decode against the capture dwell of three stops (3 ×
+    46 frames × 0.2 s), the tail, and one chunk's copy through the pinned
+    buffer against a pageable copy."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+
+    stacks, calib, proj = ring["stacks"], ring["calib"], ring["proj"]
+    params = headline_params(STEP_DEG)
+    zero, read = kernel_counters()
+    timing = {}
+    zero()
+    t0 = time.perf_counter()
+    merged, poses, stats = scan360.scan_stream_to_cloud(
+        iter(stacks), calib, proj.col_bits, proj.row_bits, params=params,
+        with_stats=True, timing=timing, device=dev)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read()
+    dwell = params.stop_chunk * stacks.shape[1] * 0.2
+    per = timing["stage_decode_s"]
+    same = same_cloud((merged, poses), fused[:2])
+    print(f"config 2b: {len(merged)} points, {wall:.3f} s wall with the "
+          f"stacks already captured; stage + decode per chunk (s) "
+          f"{[round(t, 4) for t in per]}, max {max(per):.4f} s against "
+          f"the {dwell:.1f} s capture dwell of {params.stop_chunk} stops "
+          f"(overlapped {max(per) <= dwell}); tail_s {timing['tail_s']:.3f} "
+          f"(subsample {timing['subsample_s']:.3f}, register "
+          f"{timing['register_s']:.3f}, merge {timing['merge_s']:.3f}); "
+          f"launches {launches}", flush=True)
+    print(f"config 2b against config 2: bit-equal {same}", flush=True)
+    if not all(same.values()):
+        fail(f"config 2b differs from the fused run: {same}")
+    if max(per) > dwell:
+        fail(f"config 2b: a chunk's stage + decode {max(per):.3f} s exceeds "
+             f"the {dwell:.1f} s dwell")
+    stage = scan360._Stager(params.stop_chunk, dev)
+    stage(stacks[0:3])
+    _sync(dev)
+    t0 = time.perf_counter()
+    stage(stacks[3:6])
+    _sync(dev)
+    fill_copy = time.perf_counter() - t0
+    pinned = cuda_ms(lambda: stage.buf.to(dev, non_blocking=True), 5, 1)
+    part = torch.from_numpy(stacks[3:6])
+    pageable = cuda_ms(lambda: part.to(dev), 5, 1)
+    gb = part.numel() / 1e9
+    print(f"staging one chunk ({gb:.3f} GB): host fill + pinned copy "
+          f"{fill_copy * 1e3:.1f} ms; the copy alone {pinned:.2f} ms pinned "
+          f"({gb / pinned * 1e3:.1f} GB/s), {pageable:.2f} ms pageable "
+          f"({gb / pageable * 1e3:.1f} GB/s)", flush=True)
+    return launches
+
+
+def gated_path(dev, ring):
+    """The multi-launch path under ``QualityGates(min_coverage=0.02,
+    min_edge_fitness=0.2)``: on the clean ring it must equal the ungated
+    loop run (:func:`main_path`) bit for bit, with no stop dropped and
+    every edge passing; with stop 12's stack zeroed exactly that stop is
+    dropped, one bridge 13 → 11 of gap 2 spans it, and every survivor is
+    within 2° of its commanded angle."""
+    import dataclasses
+
+    from structured_light_for_3d_model_replication_tpu_torch import health
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+
+    stacks, calib, proj = ring["stacks"], ring["calib"], ring["proj"]
+    params = dataclasses.replace(
+        scan_params(STEP_DEG), gates=health.QualityGates(
+            min_coverage=0.02, min_edge_fitness=0.2))
+    zero, read = kernel_counters()
+
+    def run(st):
+        report = health.ScanHealthReport(scan_id="chip-smoke-gated")
+        zero()
+        t0 = time.perf_counter()
+        out = scan360.scan_stacks_to_cloud(
+            st, calib, proj.col_bits, proj.row_bits, params=params,
+            with_stats=True, health=report, device=dev)
+        _sync(dev)
+        return out, report, time.perf_counter() - t0, read()
+
+    (merged, poses, stats), report, wall, launches = run(stacks)
+    same = same_cloud((merged, poses), ring["loop"][:2])
+    verdicts = {(e.verdict, e.action) for e in report.edges}
+    print(f"gated, clean ring: {len(merged)} points in {wall:.3f} s, "
+          f"launches {launches}; bit-equal to the ungated loop run {same}; "
+          f"dropped {report.dropped_stops}; edge verdicts {verdicts}",
+          flush=True)
+    if not all(same.values()) or report.dropped_stops \
+            or verdicts != {("pass", "kept")}:
+        fail(f"gated clean ring: bit-equal {same}, dropped "
+             f"{report.dropped_stops}, verdicts {verdicts}")
+    hole = stacks.shape[0] // 2
+    broken = stacks.copy()
+    broken[hole] = 0
+    (merged, poses, stats), report, wall, launches = run(broken)
+    del broken
+    surv = [k for k in range(stacks.shape[0]) if k != hole]
+    worst = max(abs(rotation_deg(poses[k][:3, :3])
+                    - min((k * STEP_DEG) % 360.0,
+                          360.0 - (k * STEP_DEG) % 360.0)) for k in surv)
+    bridges = [(e["src"], e["dst"], e["gap"]) for e in stats["edges"]
+               if e["gap"] != 1]
+    print(f"gated, stop {hole} zeroed: {len(merged)} points in {wall:.3f} "
+          f"s, launches {launches}; dropped {stats['dropped_stops']}; "
+          f"bridges {bridges}; survivors' worst pose error {worst:.3f} deg",
+          flush=True)
+    print(f"health report: {json.dumps(report.to_dict())}", flush=True)
+    if stats["dropped_stops"] != [hole] or bridges != [(hole + 1, hole - 1,
+                                                        2)]:
+        fail(f"gated: dropped {stats['dropped_stops']}, bridges {bridges}")
+    if worst > 2.0 or len(merged) <= 10_000:
+        fail(f"gated: survivors' worst pose error {worst:.3f} deg, "
+             f"{len(merged)} points")
+    return launches
+
+
+def path_nn_batched(sweeps) -> dict:
+    """The batched ``nearest_one`` on config 2's own sweeps (kept by
+    :func:`fused_path`'s repeat run): bit-equal to its plain version and,
+    per edge, to the single-edge kernel at every batched shape; timed at
+    the two most swept ones. Returns the larger shape's numbers for the
+    ``kernels`` line."""
+    import torch
+
+    got = {}
+    batched = {k: v for k, v in sweeps.items() if len(k) == 3}
+    for key, (count, (q, kt, p2v)) in sorted(batched.items()):
+        nn_batched_agrees(q, kt, p2v, f"on config 2's sweep ({count} "
+                                      "launches of that shape)")
+    top = sorted(batched.items(), key=lambda kv: -kv[1][1][0].shape[1])[:2]
+    for key, (count, (q, kt, p2v)) in top:
+        t = nn_timing(q, kt, p2v, "batched (config 2's sweep)")
+        if not got:
+            valid = torch.isfinite(p2v[:, 0])
+            p = kt.transpose(1, 2).contiguous()
+            t["plain_ms"], t["library_ms"] = nn_batched_yardsticks(
+                q, kt, p2v, p, valid)
+            print(f"nearest_one batched {'x'.join(map(str, key))} on the "
+                  f"path's sweep: plain {t['plain_ms']:.3f} ms, batched "
+                  f"cdist + argmin {t['library_ms']:.3f} ms", flush=True)
+            got = dict(ms=t["ms"], bound_ms=t["bound_ms"],
+                       plain_ms=t["plain_ms"], library_ms=t["library_ms"])
+    return got
 
 
 def surface_distance(points: np.ndarray, spheres) -> np.ndarray:
@@ -2863,8 +3296,9 @@ def main() -> int:
                     help="build and check the kernels only (no main path, "
                          "no result line)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the checked run, profile one more main-path "
-                         "run and print where the device time goes")
+                    help="after the checked runs, profile one more run of "
+                         "the 360° path (multi-launch and fused) and of the "
+                         "mesh path and print where the device time goes")
     ap.add_argument("--diagnose-determinism", action="store_true",
                     help="build, then run the 360° and mesh paths once "
                          "under torch.use_deterministic_algorithms(True, "
@@ -2905,15 +3339,23 @@ def main() -> int:
         return 0
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
-               check_matvec(dev, band), check_classify(dev, band),
-               check_combine(dev), check_brick_knn(dev),
-               check_composite(dev)]
+               check_nearest_one_batched(dev), check_matvec(dev, band),
+               check_classify(dev, band), check_combine(dev),
+               check_brick_knn(dev), check_composite(dev)]
     del band
     if args.kernels_only:
         return 0
     launches, ring, ops = main_path(dev, N_STOPS, profile=args.profile)
     path_kernel_timings(ops)
     del ops
+    fused_launches, fused, sweeps = fused_path(dev, ring,
+                                               profile=args.profile)
+    launches["nearest_one_batched"] = fused_launches["nearest_one"]
+    kernels[2].update(path_nn_batched(sweeps))
+    del sweeps
+    stream_path_2b(dev, ring, fused)
+    gated_path(dev, ring)
+    del fused, ring["loop"]
     launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
     launches["composite_cells"], on_path = splat_path(dev, ring)
     composite = kernels[-1]

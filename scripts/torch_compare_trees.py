@@ -3,7 +3,7 @@
 in turns.
 
     python3 scripts/torch_compare_trees.py OLD NEW [--runs 2]
-        [--paths ring,splat,cleanup]
+        [--paths ring,splat,cleanup,fused]
 
 OLD and NEW are roots of two checkouts of this repository (a parent
 commit unpacked with ``git archive`` into a git-ignored directory, and
@@ -14,9 +14,9 @@ kernels from its own ``csrc/``: no wrapper or C signature is copied here.
 The timing helpers, the ring and the scenes come from this script's
 repository's ``chip_smoke.py`` (``profile_calls``, ``cuda_ms``,
 ``sweep_tally``, ``cg_matvecs``, ``corner_phases``, ``phase_timing``,
-``render_stacks``, ``render_stop``, ``scan_params``, ``splat_params``,
-``heldout_view``), whose imports of the port resolve to the tree being
-measured.
+``render_stacks``, ``render_stop``, ``scan_params``, ``headline_params``,
+``splat_params``, ``heldout_view``), whose imports of the port resolve to
+the tree being measured.
 
 A turn measures, on the device (the profiler: every kernel a call
 launches) and as a call with its wrapper (CUDA events):
@@ -47,11 +47,19 @@ launches) and as a call with its wrapper (CUDA events):
   back → ``remove_background`` → ``remove_outliers`` →
   ``reconstruct_stl`` at depth 10, once to warm up (which keeps the brick
   kernel's two inputs) and ``--runs`` times timed; then
-  ``brick_knn_cells`` on those two inputs, with digests.
+  ``brick_knn_cells`` on those two inputs, with digests;
+* ``fused``: bench config 2's ring at ``stop_chunk=3`` — in a tree whose
+  ``Scan360Params`` has ``fused``, config 2 as written on device-resident
+  stacks (the batched ring); in an older tree, its multi-launch path on
+  host stacks (the hint-chained loop ring) — once to warm up and
+  ``--runs`` times timed: wall, stage seconds (``register_s`` is the
+  ring's), ``nearest_one`` launches and points.
 
 Then per kernel and stage the mean of each tree's turns and their ratio,
 and the card's name and power limit. Exits 1 if a turn fails or the two
-trees' kernels give different outputs (any digest differs).
+trees' kernels give different outputs (any digest differs; the mesh band's
+classify digest only where both trees' rings give the same cloud, since
+that band is built from it).
 """
 
 from __future__ import annotations
@@ -86,7 +94,7 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-PATHS = ("ring", "splat", "cleanup")
+PATHS = ("ring", "splat", "cleanup", "fused")
 
 
 def measure(runs: int, dev, paths=PATHS) -> dict:
@@ -148,13 +156,15 @@ def measure(runs: int, dev, paths=PATHS) -> dict:
     del pts, bricks
 
     proj = ProjectorConfig()
-    if "ring" in paths or "splat" in paths:
+    if "ring" in paths or "splat" in paths or "fused" in paths:
         stacks, rig, _, _ = cs.render_stacks(cs.N_STOPS, cs.STEP_DEG, proj)
         h, w = stacks.shape[2:]
         calib = make_calibration(*rig, h, w, proj.width, proj.height,
                                  device=dev)
     if "ring" in paths:
         ring_paths(out, runs, dev, cs, stacks, calib, proj, timed)
+    if "fused" in paths:
+        fused_ring(out, runs, dev, cs, stacks, calib, proj)
     if "splat" in paths:
         splat_path(out, runs, dev, cs, stacks, calib, proj, timed)
         del stacks
@@ -219,10 +229,11 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
                "checksum": float(np.abs(merged.points).sum())}
         out["runs"]["ring"].append(row)
         print(f"ring run {run}: {json.dumps(row)}", flush=True)
-    out["sweeps"] = {f"{m}x{n}": c for (m, n), (c, _) in sweeps.items()}
-    for (m, n), (count, (q, kt, p2v)) in sorted(
+    out["sweeps"] = {"x".join(map(str, k)): c
+                     for k, (c, _) in sweeps.items()}
+    for k, (count, (q, kt, p2v)) in sorted(
             sweeps.items(), key=lambda kv: -kv[1][0])[:2]:
-        timed(f"nearest_one ring sweep {m}x{n}",
+        timed(f"nearest_one ring sweep {'x'.join(map(str, k))}",
               lambda: nn.nearest_one(q, kt, p2v), 200)
     timed("matvec_band mesh band", lambda: pm.matvec_band(*band), 50)
     del band
@@ -234,6 +245,49 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
         out["digest"][f"classify phase {label}"] = _digest(c9, active, count)
         del c9, active, count
         out["phases"][label] = cs.phase_timing(chi, nb, v, iso, label)
+
+
+def fused_ring(out, runs, dev, cs, stacks, calib, proj) -> None:
+    """Config 2's ring, warm-up + ``runs`` timed runs: config 2 as written
+    (``chip_smoke.headline_params``, stacks staged to the device untimed)
+    where the tree has the fused form, else the tree's multi-launch path at
+    the same settings on host stacks."""
+    import dataclasses
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import nn
+
+    if "fused" in {f.name for f in dataclasses.fields(scan360.Scan360Params)}:
+        form, params = "fused", cs.headline_params(cs.STEP_DEG)
+        st = torch.from_numpy(stacks).to(dev)
+    else:
+        form, st = "loop", stacks
+        params = dataclasses.replace(cs.scan_params(cs.STEP_DEG),
+                                     stop_chunk=3)
+    out["fused_form"] = form
+    out["runs"]["fused"] = []
+    for run in range(runs + 1):
+        timing = {}
+        cs._sync(dev)
+        nn.nearest_one.launches = 0
+        t0 = time.perf_counter()
+        merged, _ = scan360.scan_stacks_to_cloud(
+            st, calib, proj.col_bits, proj.row_bits, params=params,
+            timing=timing, device=dev)
+        cs._sync(dev)
+        wall = time.perf_counter() - t0
+        if run == 0:
+            continue
+        row = {"wall_s": wall,
+               **{k: v for k, v in timing.items() if k.endswith("_s")},
+               "nearest_one_launches": nn.nearest_one.launches,
+               "points": len(merged)}
+        out["runs"]["fused"].append(row)
+        print(f"fused run {run} ({form}): {json.dumps(row)}", flush=True)
 
 
 def splat_path(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
@@ -448,10 +502,24 @@ def main() -> int:
         print(f"classify phase {label}, kernels a call: old "
               f"{turns[0]['phases'][label]['kernels_a_call']}, new "
               f"{turns[1]['phases'][label]['kernels_a_call']}", flush=True)
+    if "fused_form" in turns[0]:
+        print("fused path's form by turn: "
+              + ", ".join(t["fused_form"] for t in turns), flush=True)
     if "sweeps" in turns[0]:
         print(f"sweeps by shape: old {turns[0]['sweeps']}, new "
               f"{turns[1]['sweeps']}", flush=True)
-    same = all(t["digest"] == turns[0]["digest"] for t in turns)
+    # The mesh band's classify digest is taken on the band each tree's own
+    # ring gives: it compares kernels only where both rings give one cloud.
+    clouds = [[r["checksum"] for r in t["runs"].get("ring", [])]
+              for t in turns]
+    derived = set()
+    if any(c != clouds[0] for c in clouds):
+        derived = {k for k in turns[0]["digest"] if "mesh band" in k}
+        print(f"the trees' rings give other clouds: {sorted(derived)} "
+              "taken on other inputs, not compared", flush=True)
+    same = all({k: v for k, v in t["digest"].items() if k not in derived}
+               == {k: v for k, v in turns[0]["digest"].items()
+                   if k not in derived} for t in turns)
     print(f"kernel outputs equal in every turn: {same} "
           f"({turns[0]['digest']})", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

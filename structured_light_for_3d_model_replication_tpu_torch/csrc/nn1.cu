@@ -1,11 +1,14 @@
-// k = 1 nearest-neighbour sweep: for each of M queries (M, 3) the nearest
-// valid key of a transposed (3, N) key table -> d2 (M,) float32 and
-// idx (M,) int64.
+// k = 1 nearest-neighbour sweep over a batch of E independent problems (the
+// ring's edges): for each of M queries (E, M, 3) the nearest valid key of its
+// own edge's transposed (E, 3, N) key table -> d2 (E, M) float32 and
+// idx (E, M) int64. A single sweep is the batch of one.
 //
 // Replaces the TPU kernel `nearest_one`
 // (structured_light_for_3d_model_replication_tpu/ops/nn_pallas.py:99,
 // pallas_call at :122), the correspondence sweep of every ICP iteration,
-// `count_corr` and `information_matrix`. The TPU kernel packs the key index
+// `count_corr` and `information_matrix`; under the fused ring's `vmap` that
+// kernel runs over the edge axis, which here is folded into the tile index of
+// one launch. The TPU kernel packs the key index
 // into the low 13 mantissa bits of d2 (a workaround for its min-only
 // reduction, which also caps N at 8192). This kernel keeps d2 exact and the
 // index separate, so N is unbounded and d2 differs from the TPU's by at most
@@ -25,6 +28,11 @@
 // 2048 x 8192. Bytes are negligible (the key table is 128 KB at N = 8192).
 //
 // Design (one launch per call):
+// * the grid is E x tiles x splits blocks: a block's tile index t names its
+//   edge (t / tiles) and its query tile within the edge (t % tiles), and it
+//   reads only that edge's queries and keys, so each edge's result is the
+//   single sweep's, bit for bit, and 23 edges of 2048 queries fill the SMs
+//   that one edge's 2048 leave idle;
 // * a block of 256 threads (8 warps) owns a tile of 32 * kQ queries, kQ per
 //   lane in registers (4, or 2 where 4 leaves too few blocks to fill the
 //   card: the path's 2048-query warm-up), so every key read from shared
@@ -63,7 +71,8 @@ template <int kQ>  // queries per lane
 __global__ void __launch_bounds__(kThreads)
 nn1(const float* __restrict__ queries, const float* __restrict__ keys_t,
     const float* __restrict__ p2v, float* __restrict__ d2,
-    int64_t* __restrict__ idx, int64_t M, int64_t N, int64_t per_block) {
+    int64_t* __restrict__ idx, int64_t M, int64_t N, int64_t tiles,
+    int64_t per_block) {
   constexpr int kTile = 32 * kQ;  // queries per block
   __shared__ float4 sk[kChunk];
   __shared__ unsigned long long sred[kWarps][kTile];
@@ -72,7 +81,15 @@ nn1(const float* __restrict__ queries, const float* __restrict__ keys_t,
   const unsigned csize = cluster.num_blocks();
   const unsigned rank = cluster.block_rank();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t q0 = (int64_t)(blockIdx.x / csize) * kTile;
+  // 32-bit division: the grid holds fewer than 2^31 blocks.
+  const unsigned t = blockIdx.x / csize;
+  const unsigned e = t / (unsigned)tiles;  // this block's edge
+  const int64_t q0 = (int64_t)(t - e * (unsigned)tiles) * kTile;
+  queries += (int64_t)e * M * 3;
+  keys_t += (int64_t)e * 3 * N;
+  p2v += (int64_t)e * N;
+  d2 += (int64_t)e * M;
+  idx += (int64_t)e * M;
 
   float qx[kQ], qy[kQ], qz[kQ], best[kQ];
   uint32_t bi[kQ];
@@ -155,22 +172,24 @@ nn1(const float* __restrict__ queries, const float* __restrict__ keys_t,
 
 }  // namespace
 
-// splits: the cluster size, 1, 2, 4 or 8 blocks sharing one query tile;
-// per_lane: queries per lane, 2 or 4 (a tile of 64 or 128 queries).
+// E: the batch of edges (1 for a single sweep), each with its own M queries
+// and N key slots, contiguous edge after edge; splits: the cluster size, 1,
+// 2, 4 or 8 blocks sharing one query tile; per_lane: queries per lane, 2 or 4
+// (a tile of 64 or 128 queries).
 extern "C" int sl_nearest_one(const void* queries, const void* keys_t,
-                              const void* p2v, void* d2, void* idx,
+                              const void* p2v, void* d2, void* idx, int64_t E,
                               int64_t M, int64_t N, int splits, int per_lane,
                               void* stream) {
-  if (M < 0 || N < 1 || N > 0x7fffffffLL ||
+  if (E < 0 || M < 0 || N < 1 || N > 0x7fffffffLL ||
       (splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
       (per_lane != 2 && per_lane != 4))
     return (int)cudaErrorInvalidValue;
-  if (M == 0) return (int)cudaSuccess;
+  if (E == 0 || M == 0) return (int)cudaSuccess;
   const int64_t tile = 32 * per_lane;
   const int64_t tiles = (M + tile - 1) / tile;
-  if (tiles * splits > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (tiles * splits > 0x7fffffffLL / E) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(tiles * splits));
+  cfg.gridDim = dim3((unsigned)(E * tiles * splits));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = reinterpret_cast<cudaStream_t>(stream);
@@ -186,7 +205,7 @@ extern "C" int sl_nearest_one(const void* queries, const void* keys_t,
       &cfg, per_lane == 4 ? nn1<4> : nn1<2>,
       static_cast<const float*>(queries), static_cast<const float*>(keys_t),
       static_cast<const float*>(p2v), static_cast<float*>(d2),
-      static_cast<int64_t*>(idx), M, N, per_block);
+      static_cast<int64_t*>(idx), M, N, tiles, per_block);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -145,6 +145,13 @@ class ScanHealthReport:
             rec.angle_deg = angle_deg
         return rec
 
+    def note(self, message: str, *args) -> None:
+        """Append one note to the report (``message % args``) and log it
+        as a warning."""
+        text = message % args if args else message
+        self.notes.append(text)
+        log.warning("health: %s", text)
+
     @property
     def dropped_stops(self) -> list[int]:
         return sorted(i for i, s in self.stops.items()

@@ -42,7 +42,7 @@ _SIGNATURES = {
     # stack, col, row, B, F, H, W, col_bits, row_bits, downsample, stream
     "sl_decode_maps": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _P),
     # queries, keys_t, p2v, d2, idx, M, N, splits, per_lane, stream
-    "sl_nearest_one": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P),
+    "sl_nearest_one": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _P),
     # x, W, nbr, block_valid, out, M, stream
     "sl_matvec_band": (_P, _P, _P, _P, _P, _L, _P),
     # chi, nb8, iso, block_valid, c9, active, count, M, stream

@@ -10,15 +10,20 @@ voxel downsample → normals → FPFH → feature RANSAC → point-to-plane ICP;
 accumulate the chained transform; finish with voxel downsample +
 statistical outlier removal + normal re-estimation.
 
-The JAX package's "loop" ring strategy is the one ported: a Python loop
-over stops and edges, each edge seeded with its predecessor's transform,
-with the optional loop-closure edge 0 → N−1 last. Each edge's RANSAC draws
-come from its own ``torch.Generator`` seeded from (seed, edge index)
-(:func:`edge_generator`), so a streaming session that registers the same
-edges one stop at a time (:func:`preprocess_registration_view`,
-:func:`register_edge`, :func:`axis_prior_pass`) draws the same numbers as
-the batch ring. The streams differ from the JAX package's ``jax.random``
-keys. The public entry points take ``device=None``, which means the card.
+Both of the JAX package's ring strategies are ported
+(:func:`register_sequence`). ``"loop"``: a Python loop over stops and edges,
+each edge seeded with its predecessor's transform, with the optional
+loop-closure edge 0 → N−1 last. ``"scan"`` (:func:`_ring_body`, the ring of
+the JAX package's fused program): every edge starts from identity and all
+edges run as one batch, each step one launch for the whole ring, the
+turntable-axis pass batched the same way. Each edge's RANSAC draws come
+from its own ``torch.Generator`` seeded from (seed, edge index)
+(:func:`edge_generator`) in either strategy, so a streaming session that
+registers the same edges one stop at a time
+(:func:`preprocess_registration_view`, :func:`register_edge`,
+:func:`axis_prior_pass`) draws the same numbers as the batch ring. The
+streams differ from the JAX package's ``jax.random`` keys. The public entry
+points take ``device=None``, which means the card.
 """
 
 from __future__ import annotations
@@ -133,23 +138,27 @@ def _register_edge(params: MergeParams, s_pts, s_val, s_feat, d_pts, d_val,
                    d_nrm, d_feat, generator, hint):
     """One ring edge, src onto dst: feature RANSAC → best of {RANSAC, hint,
     identity} by correspondence count at 4·voxel → annealed point-to-plane
-    ICP → information matrix. Returns (T, fitness, rmse, info)."""
+    ICP → information matrix. Returns (T, fitness, rmse, info). With a
+    leading edge axis E (every operand (E, ...), ``hint`` (E, 4, 4),
+    ``generator`` one a edge) the E edges run as one batch."""
     v = params.voxel_size
     coarse = registration.ransac_feature_registration(
         s_pts, s_feat, d_pts, d_feat, distance_threshold=1.5 * v,
         src_valid=s_val, dst_valid=d_val,
         num_iterations=params.ransac_iterations, generator=generator)
-    eye = torch.eye(4, dtype=torch.float32, device=s_pts.device)
+    eye = torch.eye(4, dtype=torch.float32, device=s_pts.device).expand(
+        hint.shape)
     cands = torch.stack([coarse.transformation, hint, eye])
     table = nn.key_table(d_pts, d_val)
 
     def count_corr(T):
         moved = registration.transform_points(T, s_pts)
         _, found, d2 = registration._nn1(moved, d_pts, d_val, s_val, table)
-        return (found & (d2 <= (4.0 * v) ** 2)).sum()
+        return (found & (d2 <= (4.0 * v) ** 2)).sum(-1)
 
     counts = torch.stack([count_corr(T) for T in cands])
-    init = cands[torch.argmax(counts)]
+    pick = torch.argmax(counts, dim=0)[None, ..., None, None]
+    init = torch.take_along_dim(cands, pick, dim=0)[0]
     fine = registration.icp(
         s_pts, d_pts, max_correspondence_distance=v, init=init,
         dst_normals=d_nrm, src_valid=s_val, dst_valid=d_val,
@@ -187,6 +196,12 @@ def _edge_xs(pre, n: int, loop_closure: bool = False):
             for s, d in zip(src_ix, dst_ix)]
 
 
+def _stack_xs(xs):
+    """:func:`_edge_xs`'s per-edge tuples stacked along a leading edge
+    axis: the batched ring's operands."""
+    return tuple(torch.stack(c) for c in zip(*xs))
+
+
 def _consensus_step(Ts: torch.Tensor, step_deg: float | None) -> torch.Tensor:
     """Robust common per-edge transform of a turntable ring: the median of
     the edge screws (linear-interpolation median, as ``jnp.median``: the
@@ -211,27 +226,25 @@ def _consensus_step(Ts: torch.Tensor, step_deg: float | None) -> torch.Tensor:
 
 
 def _axis_prior_pass(params: MergeParams, xs, outs):
-    """Second ICP sweep seeded with the ring-consensus step; each edge keeps
-    the seeded result unless it is clearly worse (see
+    """Second ICP sweep seeded with the ring-consensus step, all edges as
+    one batch (``xs``: :func:`_stack_xs`'s (E, ...) operands); each edge
+    keeps the seeded result unless it is clearly worse (see
     ``MergeParams.axis_prior``)."""
     Ts, fit, rmse, infos = outs
     Tp = _consensus_step(Ts, params.step_deg)
+    s_pts, s_val, _sf, d_pts, d_val, d_nrm, _df = xs
     v = params.voxel_size
-    re = []
-    for s_pts, s_val, _sf, d_pts, d_val, d_nrm, _df in xs:
-        # Tight constant radius, no annealing, few iterations: the prior is
-        # already near the answer.
-        fine = registration.icp(
-            s_pts, d_pts, max_correspondence_distance=v, init=Tp,
-            dst_normals=d_nrm, src_valid=s_val, dst_valid=d_val,
-            max_iterations=min(params.icp_iterations, 6),
-            method="point_to_plane")
-        info2 = registration.information_matrix(
-            s_pts, d_pts, fine.transformation,
-            max_correspondence_distance=v, src_valid=s_val, dst_valid=d_val)
-        re.append((fine.transformation, fine.fitness, fine.inlier_rmse,
-                   info2))
-    T2, fit2, rmse2, info2 = (torch.stack(c) for c in zip(*re))
+    # Tight constant radius, no annealing, few iterations: the prior is
+    # already near the answer.
+    fine = registration.icp(
+        s_pts, d_pts, max_correspondence_distance=v,
+        init=Tp.expand(Ts.shape), dst_normals=d_nrm, src_valid=s_val,
+        dst_valid=d_val, max_iterations=min(params.icp_iterations, 6),
+        method="point_to_plane")
+    T2, fit2, rmse2 = fine
+    info2 = registration.information_matrix(
+        s_pts, d_pts, T2, max_correspondence_distance=v, src_valid=s_val,
+        dst_valid=d_val)
     # Edges whose free result disagrees with the consensus are the suspected
     # slides: with the commanded step known they adopt the seeded result
     # under a 10× wider fitness margin.
@@ -275,38 +288,82 @@ def register_edge(src_prep, dst_prep, params: MergeParams,
                           d_feat, generator, hint)
 
 
+def register_chain(pre, pairs, params: MergeParams, seed: int = 0):
+    """Edges registered in turn, src onto dst for each (src, dst) of
+    ``pairs`` (indices into the per-stop preprocesses ``pre``), each seeded
+    with its predecessor's transform and edge k drawing from
+    :func:`edge_generator` ``(seed, k)``: the loop strategy's ring, and the
+    quality-gated ring over the surviving stops. Returns stacked (Ts
+    (E, 4, 4), fit (E,), rmse (E,), infos (E, 6, 6)) device tensors."""
+    hint = None
+    outs = []
+    for k, (s, d) in enumerate(pairs):
+        out = register_edge(pre[s], pre[d], params,
+                            edge_generator(seed, k, pre[s][0].device), hint)
+        outs.append(out)
+        hint = out[0]
+    return tuple(torch.stack(c) for c in zip(*outs))
+
+
 def axis_prior_pass(preps, outs, params: MergeParams,
                     loop_closure: bool = False):
     """The turntable-axis re-pass over a registered ring, from its retained
     per-stop preprocesses (``outs`` = stacked (Ts, fit, rmse, infos) in
     ring order, the loop edge last)."""
-    return _axis_prior_pass(params, _edge_xs(preps, len(preps),
-                                             loop_closure), outs)
+    return _axis_prior_pass(params, _stack_xs(_edge_xs(
+        preps, len(preps), loop_closure)), outs)
+
+
+def _ring_body(params: MergeParams, n: int, loop_closure: bool, points,
+               valid, seed: int = 0):
+    """The ring of the JAX package's fused program (its ``_ring_body``):
+    the N per-stop preprocesses, then every edge at once from identity —
+    one batch, so each RANSAC hypothesis batch, candidate count, ICP step
+    and information matrix is one step for the whole ring (and one
+    ``nearest_one`` launch where it sweeps) — and the axis-prior pass
+    batched over the same edges, which takes the role of the loop
+    strategy's hint chain. Edge e draws from :func:`edge_generator`
+    ``(seed, e)``, as in the loop. Returns stacked (Ts (E, 4, 4), fit (E,),
+    rmse (E,), infos (E, 6, 6)) device tensors."""
+    pre = [preprocess_registration_view(points[i], valid[i], params)
+           for i in range(n)]
+    xs = _stack_xs(_edge_xs(pre, n, loop_closure))
+    e = xs[0].shape[0]
+    eye = torch.eye(4, dtype=torch.float32, device=points.device)
+    outs = _register_edge(params, *xs,
+                          [edge_generator(seed, k, points.device)
+                           for k in range(e)], eye.expand(e, 4, 4))
+    if params.axis_prior and e >= 3:
+        outs = _axis_prior_pass(params, xs, outs)
+    return outs
 
 
 def register_sequence(points: torch.Tensor, valid: torch.Tensor,
                       params: MergeParams, seed: int = 0,
-                      loop_closure: bool = False):
+                      loop_closure: bool = False, strategy: str = "loop"):
     """Edge transforms for the ring: edge i maps scan i+1 into scan i's
     frame; the optional loop edge (last) maps scan 0 into scan N−1's frame.
     ``points`` is the (N, M, 3) registration stack with its (N, M) valid
-    mask; edge e draws from :func:`edge_generator` ``(seed, e)``. Returns
-    (Ts (E, 4, 4), infos (E, 6, 6), fitness list, rmse list)."""
+    mask; edge e draws from :func:`edge_generator` ``(seed, e)``.
+    ``strategy`` is ``"loop"`` (edges in turn, each seeded with its
+    predecessor's transform) or ``"scan"`` (:func:`_ring_body`, all edges
+    as one batch from identity: another program, as in the JAX package).
+    Returns (Ts (E, 4, 4), infos (E, 6, 6), fitness list, rmse list)."""
     n = points.shape[0]
-    pre = [preprocess_registration_view(points[i], valid[i], params)
-           for i in range(n)]
-    hint = None
-    outs = []
-    for e, (s, d) in enumerate(zip(*_ring_edge_indices(n, loop_closure))):
-        out = register_edge(pre[s], pre[d], params,
-                            edge_generator(seed, e, points.device), hint)
-        outs.append(out)
-        if e < n - 1:
-            hint = out[0]
-    Ts, fit, rmse, infos = (torch.stack(c) for c in zip(*outs))
-    if params.axis_prior and len(outs) >= 3:
-        Ts, fit, rmse, infos = axis_prior_pass(pre, (Ts, fit, rmse, infos),
-                                               params, loop_closure)
+    if strategy == "scan":
+        Ts, fit, rmse, infos = _ring_body(params, n, loop_closure, points,
+                                          valid, seed)
+    elif strategy == "loop":
+        pre = [preprocess_registration_view(points[i], valid[i], params)
+               for i in range(n)]
+        Ts, fit, rmse, infos = register_chain(
+            pre, list(zip(*_ring_edge_indices(n, loop_closure))), params,
+            seed)
+        if params.axis_prior and Ts.shape[0] >= 3:
+            Ts, fit, rmse, infos = axis_prior_pass(
+                pre, (Ts, fit, rmse, infos), params, loop_closure)
+    else:
+        raise ValueError(f"unknown ring strategy {strategy!r}")
     fit_np = fit.cpu().numpy()
     rmse_np = rmse.cpu().numpy()
     for i in range(1, n):

@@ -32,15 +32,24 @@ def check_neighbors(neighbors, n: int, width: int) -> None:
 
 def pad_points(points: torch.Tensor, valid: torch.Tensor | None,
                multiple: int):
-    """Pad (N, D) points (+ valid mask) to a multiple; padding is invalid."""
-    n, dim = points.shape
+    """Pad (..., N, D) points (+ valid mask) to a multiple of N; padding is
+    invalid."""
+    lead, (n, dim) = points.shape[:-2], points.shape[-2:]
     if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=points.device)
+        valid = torch.ones(lead + (n,), dtype=torch.bool, device=points.device)
     pad = (-n) % multiple
     if pad:
-        points = torch.cat([points, points.new_zeros((pad, dim))])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
+        points = torch.cat([points, points.new_zeros(lead + (pad, dim))], -2)
+        valid = torch.cat([valid, valid.new_zeros(lead + (pad,))], -1)
     return points, valid
+
+
+def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` over any leading batch axes: (..., N, D) rows picked
+    by (..., *S) indices into each batch's own table → (..., *S, D)."""
+    lead = table.shape[:-2]
+    flat = idx.reshape(lead + (-1, 1)).expand(lead + (-1, table.shape[-1]))
+    return torch.gather(table, -2, flat).reshape(idx.shape + table.shape[-1:])
 
 
 def smallest_k(d: torch.Tensor, k: int):
@@ -60,16 +69,18 @@ def _select(q, kp, kv, p2, k, k_tile):
     """Top-k (smallest) of one query tile against all keys, by the matmul
     expansion, one key tile at a time: a running argmin for k = 1 (earlier
     tiles win ties), else a carried top-k merge — the JAX package's tiling,
-    so the float32 products are formed over the same shapes."""
+    so the float32 products are formed over the same shapes. Any leading
+    batch axes of ``q``, ``kp``, ``kv`` and ``p2`` are carried through."""
     q2 = torch.sum(q * q, dim=-1, keepdim=True)
     inf = torch.full((), float("inf"), device=q.device)
     best_d = best_i = None
-    for s in range(0, kp.shape[0], k_tile):
-        d = q2 + p2[None, s:s + k_tile] - 2.0 * (q @ kp[s:s + k_tile].T)
-        d = torch.where(kv[None, s:s + k_tile], d, inf)
+    for s in range(0, kp.shape[-2], k_tile):
+        d = q2 + p2[..., None, s:s + k_tile] - 2.0 * (
+            q @ kp[..., s:s + k_tile, :].transpose(-1, -2))
+        d = torch.where(kv[..., None, s:s + k_tile], d, inf)
         if k == 1:
-            j = torch.argmin(d, dim=1, keepdim=True)
-            dd = torch.gather(d, 1, j)
+            j = torch.argmin(d, dim=-1, keepdim=True)
+            dd = torch.gather(d, -1, j)
             j = j + s
             if best_d is None:
                 best_d, best_i = dd, j
@@ -78,12 +89,12 @@ def _select(q, kp, kv, p2, k, k_tile):
                 best_d = torch.where(better, dd, best_d)
                 best_i = torch.where(better, j, best_i)
             continue
-        idx = torch.arange(s, s + d.shape[1], device=q.device).expand_as(d)
+        idx = torch.arange(s, s + d.shape[-1], device=q.device).expand_as(d)
         if best_d is not None:
-            d = torch.cat([best_d, d], dim=1)
-            idx = torch.cat([best_i, idx], dim=1)
+            d = torch.cat([best_d, d], dim=-1)
+            idx = torch.cat([best_i, idx], dim=-1)
         best_d, o = smallest_k(d, k)
-        best_i = torch.gather(idx, 1, o)
+        best_i = torch.gather(idx, -1, o)
     return best_d, best_i
 
 
@@ -97,12 +108,14 @@ def knn(points: torch.Tensor, k: int, queries: torch.Tensor | None = None,
     distances ascending. Invalid points never appear as neighbours; when
     fewer than k valid points exist, surplus slots have neighbor_valid False
     (distance reported as 0). With ``exclude_self`` the query's own index is
-    dropped (Open3D's SOR convention)."""
+    dropped (Open3D's SOR convention). Leading batch axes — (..., N, D)
+    points, (..., M, D) queries, each batch searched in its own points —
+    carry through to every output, the matrix products then batched."""
     self_query = queries is None
     if self_query:
         queries, queries_valid = points, points_valid
     kk = k + 1 if (exclude_self and self_query) else k
-    n_q = queries.shape[0]
+    n_q = queries.shape[-2]
     k_tile = 8192 if kk == 1 else 2048
     p_pad, pv_pad = pad_points(points.to(torch.float32), points_valid, k_tile)
     q_pad, _ = pad_points(queries.to(torch.float32), None, q_tile)
@@ -110,30 +123,30 @@ def knn(points: torch.Tensor, k: int, queries: torch.Tensor | None = None,
 
     ds, is_ = [], []
     for s in range(0, n_q, q_tile):
-        q = q_pad[s:s + q_tile]
+        q = q_pad[..., s:s + q_tile, :]
         best_d, best_i = _select(q, p_pad, pv_pad, p2, kk, k_tile)
         # The expansion loses ~|q|·|p|·eps to cancellation; the k selected
         # distances are recomputed by direct difference and re-sorted.
-        diff = q[:, None, :] - p_pad[best_i]
+        diff = q[..., None, :] - rows(p_pad, best_i)
         exact = torch.sum(diff * diff, dim=-1)
         best_d = torch.where(torch.isfinite(best_d), exact, best_d)
         if kk > 1:
-            order = torch.argsort(best_d, dim=1, stable=True)
-            best_d = torch.gather(best_d, 1, order)
-            best_i = torch.gather(best_i, 1, order)
+            order = torch.argsort(best_d, dim=-1, stable=True)
+            best_d = torch.gather(best_d, -1, order)
+            best_i = torch.gather(best_i, -1, order)
         ds.append(best_d)
         is_.append(best_i)
-    d = torch.cat(ds)[:n_q].clamp_min(0.0)
-    i = torch.cat(is_)[:n_q]
+    d = torch.cat(ds, -2)[..., :n_q, :].clamp_min(0.0)
+    i = torch.cat(is_, -2)[..., :n_q, :]
 
     if exclude_self and self_query:
         own = torch.arange(n_q, device=i.device)[:, None]
-        order = torch.argsort((i == own).to(torch.int8), dim=1, stable=True)
-        d = torch.gather(d, 1, order)[:, :k]
-        i = torch.gather(i, 1, order)[:, :k]
+        order = torch.argsort((i == own).to(torch.int8), dim=-1, stable=True)
+        d = torch.gather(d, -1, order)[..., :k]
+        i = torch.gather(i, -1, order)[..., :k]
 
     finite = torch.isfinite(d)
     nb_valid = finite
     if queries_valid is not None:
-        nb_valid = nb_valid & queries_valid[:n_q, None]
+        nb_valid = nb_valid & queries_valid[..., :n_q, None]
     return torch.where(finite, d, torch.zeros((), device=d.device)), i, nb_valid

@@ -6,6 +6,15 @@ Transforms are 4×4 float32, ``x' = T[:3,:3] @ x + T[:3,3]``, pose order
 batch dimension and its ``lax.scan`` a Python loop. The k = 1
 correspondence sweep (:func:`_nn1`) always goes through ``ops/nn.py``: the
 CUDA kernel on the card, its plain version on the host.
+
+The edge math — :func:`_nn1`, :func:`transform_points`,
+:func:`match_features`, :func:`ransac_feature_registration`, :func:`icp`
+and :func:`information_matrix` — also takes a leading edge axis E (every
+operand (E, ...)): the JAX package's fused ring ``vmap``s it over the
+ring's edges, the port runs each step once for all E. Per edge it is the
+same arithmetic; where a batched matrix product may sum in another order
+than the single one, an edge can differ from its own single run in the
+last bits.
 """
 
 from __future__ import annotations
@@ -15,12 +24,13 @@ from typing import NamedTuple
 import torch
 
 from . import nn as nn_ops
-from .knn import knn
+from .knn import knn, rows
 
 
 def _nn1(moved, dst_pts, dst_valid, src_valid, table=None):
     """k = 1 correspondence sweep. Returns (idx (N,), found (N,), d2 (N,))
-    with d2 = +inf where no valid key exists. ``table`` reuses a
+    with d2 = +inf where no valid key exists (each (E, N) with a leading
+    edge axis: one launch for all edges). ``table`` reuses a
     precomputed ``nn.key_table`` when the same keys are swept repeatedly.
     Unlike the JAX package there is no key-count cap and no other path."""
     if table is None:
@@ -49,12 +59,14 @@ def skew(v: torch.Tensor) -> torch.Tensor:
 
 
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:
-    """Rotation vector -> 3×3 rotation (Rodrigues, small-angle-safe)."""
-    th = torch.linalg.norm(omega)
+    """Rotation vector (..., 3) -> (..., 3, 3) rotation (Rodrigues,
+    small-angle-safe)."""
+    th = torch.linalg.norm(omega, dim=-1, keepdim=True)
     one = torch.ones((), dtype=omega.dtype, device=omega.device)
     k = omega / torch.where(th > 1e-12, th, one)
     K = skew(k)
     eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    th = th[..., None]
     R = eye + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
     return torch.where(th > 1e-12, R, eye)
 
@@ -98,7 +110,10 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
     Horn's quaternion method: the dominant eigenvector of a 4×4 symmetric
     matrix, found by a fixed-count shifted power iteration (the JAX
     package's algorithm, not an SVD). ``ensure_converged`` keeps iterating
-    until the Rayleigh residual ‖Aq − λq‖ < 1e-6 or 160 extra steps."""
+    until the Rayleigh residual ‖Aq − λq‖ < 1e-6 or 160 extra steps: in a
+    batch every problem steps until its own residual is below it and is
+    then held, as under the JAX package's ``vmap`` of its while loop, with
+    one host readback a step for the whole batch."""
     if weights is None:
         weights = torch.ones(src.shape[:-1], dtype=src.dtype,
                              device=src.device)
@@ -137,10 +152,10 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor,
         for _ in range(160):
             Aq = (A @ q[..., None])[..., 0]
             lam = (q * Aq).sum(-1, keepdim=True)
-            res = float(torch.linalg.norm(Aq - lam * q, dim=-1).max())
-            if not res > 1e-6:
+            active = torch.linalg.norm(Aq - lam * q, dim=-1) > 1e-6
+            if not bool(active.any()):
                 break
-            q = _power_step(A, q)
+            q = torch.where(active[..., None], _power_step(A, q), q)
     degenerate = torch.linalg.norm(H, dim=(-2, -1)) < 1e-12
     ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=q.dtype,
                          device=q.device)
@@ -183,18 +198,19 @@ def match_features(src_feat: torch.Tensor, dst_feat: torch.Tensor,
                    dst_valid: torch.Tensor | None = None,
                    mutual: bool = True):
     """Nearest-neighbour correspondence per source feature (33-D exact KNN).
-    Returns (dst_index (N,), corr_valid (N,)); ``mutual`` keeps only pairs
-    that are each other's nearest neighbours."""
+    Returns (dst_index (N,), corr_valid (N,)), each (E, N) with a leading
+    edge axis; ``mutual`` keeps only pairs that are each other's nearest
+    neighbours."""
     _, idx_sd, v_sd = knn(dst_feat, 1, queries=src_feat,
                           points_valid=dst_valid, queries_valid=src_valid)
-    nn = idx_sd[:, 0]
-    ok = v_sd[:, 0]
+    nn = idx_sd[..., 0]
+    ok = v_sd[..., 0]
     if mutual:
         _, idx_ds, v_ds = knn(src_feat, 1, queries=dst_feat,
                               points_valid=src_valid, queries_valid=dst_valid)
-        back = idx_ds[:, 0][nn]
-        ok = ok & v_ds[:, 0][nn] & (back == torch.arange(
-            src_feat.shape[0], device=back.device))
+        back = torch.gather(idx_ds[..., 0], -1, nn)
+        ok = ok & torch.gather(v_ds[..., 0], -1, nn) & (back == torch.arange(
+            src_feat.shape[-2], device=back.device))
     return nn, ok
 
 
@@ -216,40 +232,51 @@ def _ransac_core(generator, src_pts, dst_pts, corr_idx, corr_ok,
     rank by inliers on a strided 256-point subset; the winner is re-scored
     and polished on the full set. ``samples`` (n_batches, batch, ransac_n)
     int64 replaces the draws from ``generator`` (tests feed both packages
-    the same draws)."""
-    n = src_pts.shape[0]
+    the same draws). With a leading edge axis E every operand is (E, ...),
+    ``generator`` a sequence of E generators (edge e draws exactly what its
+    single run draws from its own) or ``samples`` (E, n_batches, batch,
+    ransac_n), and each hypothesis batch runs once for all E: about
+    E × batch × 256 × 12 bytes at its peak (0.58 GB at 23 × 8192)."""
+    lead = src_pts.shape[:-2]
+    n = src_pts.shape[-2]
     dev = src_pts.device
     if samples is None:
-        samples = ransac_samples(n, num_iterations, batch, generator, dev,
-                                 ransac_n)
+        samples = torch.stack([
+            ransac_samples(n, num_iterations, batch, g, dev, ransac_n)
+            for g in (generator if lead else [generator])]).reshape(
+                lead + (-1, batch, ransac_n))
+    samples = samples.to(dev)
     thr2 = distance_threshold ** 2
-    dst_c = dst_pts[corr_idx]
+    dst_c = rows(dst_pts, corr_idx)
 
     def score_T(T):
         d2 = torch.sum((transform_points(T, src_pts) - dst_c) ** 2, dim=-1)
         inl = corr_ok & (d2 <= thr2)
-        cnt = inl.sum()
+        cnt = inl.sum(-1)
         rmse = torch.sqrt(torch.where(inl, d2, torch.zeros((), device=dev))
-                          .sum() / cnt.clamp_min(1))
+                          .sum(-1) / cnt.clamp_min(1))
         return cnt, rmse, inl
 
     # Hypothesis ranking on a strided subset of the correspondences.
     sub = max(1, n // 256)
-    sub_src = src_pts[::sub]
-    sub_dst = dst_c[::sub]
-    sub_ok = corr_ok[::sub]
-    tbl = torch.cat([src_pts, dst_c, corr_ok.to(torch.float32)[:, None]], 1)
+    sub_src = src_pts[..., None, ::sub, :]
+    sub_dst = dst_c[..., None, ::sub, :]
+    sub_ok = corr_ok[..., None, ::sub]
+    tbl = torch.cat([src_pts, dst_c, corr_ok.to(torch.float32)[..., None]],
+                    -1)
     iu, ju = torch.triu_indices(ransac_n, ransac_n, 1, device=dev)
 
-    best_T = torch.eye(4, dtype=torch.float32, device=dev)
-    best_cnt = torch.full((), -1, dtype=torch.int64, device=dev)
-    for samp in samples.to(dev):
-        rows = tbl[samp]                                   # (b, n_s, 7)
-        s = rows[..., :3]
-        d = rows[..., 3:6]
-        ok = torch.all(rows[..., 6] > 0.5, dim=-1)
-        es = torch.linalg.norm(s[:, iu] - s[:, ju], dim=-1)
-        ed = torch.linalg.norm(d[:, iu] - d[:, ju], dim=-1)
+    best_T = torch.eye(4, dtype=torch.float32, device=dev).expand(
+        lead + (4, 4))
+    best_cnt = torch.full(lead, -1, dtype=torch.int64, device=dev)
+    for k in range(samples.shape[-3]):
+        samp = samples[..., k, :, :]
+        drawn = rows(tbl, samp)                            # (…, b, n_s, 7)
+        s = drawn[..., :3]
+        d = drawn[..., 3:6]
+        ok = torch.all(drawn[..., 6] > 0.5, dim=-1)
+        es = torch.linalg.norm(s[..., iu, :] - s[..., ju, :], dim=-1)
+        ed = torch.linalg.norm(d[..., iu, :] - d[..., ju, :], dim=-1)
         ratio = torch.minimum(es, ed) / torch.maximum(es, ed).clamp_min(1e-12)
         ok = ok & torch.all(ratio >= edge_length_ratio, dim=-1)
         T = (_triplet_rigid(s, d) if ransac_n == 3
@@ -261,19 +288,22 @@ def _ransac_core(generator, src_pts, dst_pts, corr_idx, corr_ok,
         cnt = (sub_ok & (sd2 <= thr2)).sum(-1)
         cnts = torch.where(ok, cnt, torch.full((), -1, dtype=cnt.dtype,
                                                device=dev))
-        i = torch.argmax(cnts)
-        better = cnts[i] > best_cnt
-        best_T = torch.where(better, T[i], best_T)
-        best_cnt = torch.where(better, cnts[i], best_cnt)
+        i = torch.argmax(cnts, dim=-1, keepdim=True)
+        top = torch.gather(cnts, -1, i)[..., 0]
+        better = top > best_cnt
+        T_i = torch.gather(T, -3, i[..., None, None].expand(
+            lead + (1, 4, 4)))[..., 0, :, :]
+        best_T = torch.where(better[..., None, None], T_i, best_T)
+        best_cnt = torch.where(better, top, best_cnt)
 
     # Polish: re-estimate from ALL inliers of the best hypothesis.
     cnt0, _, inl = score_T(best_T)
     T_ref = kabsch(src_pts, dst_c, weights=inl.to(torch.float32),
                    ensure_converged=True)
     cnt1, _, _ = score_T(T_ref)
-    T_fin = torch.where(cnt1 >= cnt0, T_ref, best_T)
+    T_fin = torch.where((cnt1 >= cnt0)[..., None, None], T_ref, best_T)
     cntf, rmsef, _ = score_T(T_fin)
-    fitness = cntf.to(torch.float32) / corr_ok.sum().clamp_min(1)
+    fitness = cntf.to(torch.float32) / corr_ok.sum(-1).clamp_min(1)
     return RegistrationResult(T_fin, fitness, rmsef)
 
 
@@ -284,12 +314,12 @@ def ransac_feature_registration(src_pts, src_feat, dst_pts, dst_feat,
                                 edge_length_ratio: float = 0.9,
                                 num_iterations: int = 100_000,
                                 batch: int = 8192, ransac_n: int = 3,
-                                generator: torch.Generator | None = None
-                                ) -> RegistrationResult:
+                                generator=None) -> RegistrationResult:
     """Global registration à la
     ``registration_ransac_based_on_feature_matching`` (1.5·voxel threshold,
     edge-length 0.9, 100k iterations). Every hypothesis runs — no early
-    confidence exit (equivalent to confidence = 1.0)."""
+    confidence exit (equivalent to confidence = 1.0). With a leading edge
+    axis, ``generator`` is one ``torch.Generator`` an edge."""
     src_pts = src_pts.to(torch.float32)
     dst_pts = dst_pts.to(torch.float32)
     corr_idx, corr_ok = match_features(src_feat, dst_feat, src_valid,
@@ -319,15 +349,18 @@ def icp(src_pts: torch.Tensor, dst_pts: torch.Tensor,
     number of iterations, optional per-iteration multipliers on the
     correspondence distance (``schedule``), and ``warmup_subsample`` > 1
     running the first 80% of iterations on every S-th source point. The
-    final fitness/rmse are evaluated at the base distance on the full set."""
+    final fitness/rmse are evaluated at the base distance on the full set.
+    With a leading edge axis E every operand is (E, ...) (``init`` (E, 4,
+    4)) and each step solves E point-to-plane systems at once."""
     src_pts = src_pts.to(torch.float32)
     dst_pts = dst_pts.to(torch.float32)
     dev = src_pts.device
-    n = src_pts.shape[0]
+    lead = src_pts.shape[:-1]
     if init is None:
-        init = torch.eye(4, dtype=torch.float32, device=dev)
+        init = torch.eye(4, dtype=torch.float32, device=dev).expand(
+            lead[:-1] + (4, 4))
     if src_valid is None:
-        src_valid = torch.ones(n, dtype=torch.bool, device=dev)
+        src_valid = torch.ones(lead, dtype=torch.bool, device=dev)
     if method == "point_to_plane" and dst_normals is None:
         raise ValueError("point_to_plane ICP needs dst_normals")
     if schedule is None:
@@ -351,34 +384,34 @@ def icp(src_pts: torch.Tensor, dst_pts: torch.Tensor,
     def step(T, pts, valid, mult):
         moved, idx, ok, _ = correspondences(T, pts, valid, mult * mult)
         w = ok.to(torch.float32)
-        q = dst_pts[idx]
+        q = rows(dst_pts, idx)
         if method == "point_to_point":
             dT = kabsch(moved, q, weights=w, ensure_converged=True)
         else:
-            nq = dst_normals[idx]
+            nq = rows(dst_normals, idx)
             r = torch.sum((moved - q) * nq, dim=-1)
             J = torch.cat([torch.linalg.cross(moved, nq, dim=-1), nq], -1)
-            Jw = J * w[:, None]
-            A = Jw.T @ J
-            b = -(Jw.T @ r)
+            Jw = J * w[..., None]
+            A = Jw.transpose(-1, -2) @ J
+            b = -(Jw.transpose(-1, -2) @ r[..., None])[..., 0]
             x = torch.linalg.solve_ex(A + 1e-9 * eye6, b)[0]
-            dT = exp_se3(x[:3], x[3:])
+            dT = exp_se3(x[..., :3], x[..., 3:])
         return dT @ T
 
     T = init.to(torch.float32)
     n_warm = 0
     if warmup_subsample > 1 and max_iterations >= 8:
         n_warm = int(round(0.8 * max_iterations))
-        sub_pts = src_pts[::warmup_subsample]
-        sub_val = src_valid[::warmup_subsample]
+        sub_pts = src_pts[..., ::warmup_subsample, :]
+        sub_val = src_valid[..., ::warmup_subsample]
         for mult in mults[:n_warm]:
             T = step(T, sub_pts, sub_val, mult)
     for mult in mults[n_warm:]:
         T = step(T, src_pts, src_valid, mult)
     _, idx, ok, d2 = correspondences(T, src_pts, src_valid)
-    cnt = ok.sum()
-    fitness = cnt.to(torch.float32) / src_valid.sum().clamp_min(1)
-    rmse = torch.sqrt(torch.where(ok, d2, zero).sum() / cnt.clamp_min(1))
+    cnt = ok.sum(-1)
+    fitness = cnt.to(torch.float32) / src_valid.sum(-1).clamp_min(1)
+    rmse = torch.sqrt(torch.where(ok, d2, zero).sum(-1) / cnt.clamp_min(1))
     return RegistrationResult(T, fitness, rmse)
 
 
@@ -393,14 +426,15 @@ def information_matrix(src_pts: torch.Tensor, dst_pts: torch.Tensor,
                        dst_valid: torch.Tensor | None = None) -> torch.Tensor:
     """6×6 Σ JᵀJ over inlier correspondences
     (``get_information_matrix_from_point_clouds``): J_i = [−[q_i]ₓ | I]
-    with q_i the matched TARGET point."""
+    with q_i the matched TARGET point; (E, 6, 6) with a leading edge
+    axis."""
     src_pts = src_pts.to(torch.float32)
     dst_pts = dst_pts.to(torch.float32)
     moved = transform_points(T.to(torch.float32), src_pts)
     idx, found, d2 = _nn1(moved, dst_pts, dst_valid, src_valid)
     ok = found & (d2 <= max_correspondence_distance ** 2)
-    q = dst_pts[idx]
+    q = rows(dst_pts, idx)
     eye = torch.eye(3, dtype=torch.float32, device=q.device)
     J = torch.cat([-skew(q), eye.expand(q.shape[:-1] + (3, 3))], dim=-1)
-    w = ok.to(torch.float32)[:, None, None]
-    return torch.einsum("nij,nik->jk", J * w, J)
+    w = ok.to(torch.float32)[..., None, None]
+    return torch.einsum("...nij,...nik->...jk", J * w, J)

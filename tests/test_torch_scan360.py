@@ -122,3 +122,48 @@ def test_scan_stacks_rejects_unported_method(synth_rig, stacks):
         scan360.scan_stacks_to_cloud(
             stacks, cal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
             params=scan360.Scan360Params(method="fused"), device="cpu")
+
+
+@pytest.mark.parametrize("knob, match", [("ring_strategy", "ring strategy"),
+                                         ("decode_strategy",
+                                          "decode_strategy")])
+def test_bad_scan360_knob_raises_as_jax_does(synth_rig, stacks, knob, match):
+    """An unknown ring or decode strategy raises ValueError in both
+    packages (the decode strategy before any work, the ring strategy where
+    the ring is registered)."""
+    cam_K, proj_K, R, T = synth_rig
+    jcal = jtri.make_calibration(cam_K, proj_K, R, T, CAM_H, CAM_W,
+                                 SMALL_PROJ.width, SMALL_PROJ.height)
+    with pytest.raises(ValueError, match=match):
+        jscan360.scan_stacks_to_cloud(
+            jnp.asarray(stacks), jcal, SMALL_PROJ.col_bits,
+            SMALL_PROJ.row_bits,
+            params=jscan360.Scan360Params(**{knob: "bogus"}))
+    cal = tri.calibration_from_numpy(
+        {k: np.asarray(v) for k, v in jcal._asdict().items()}, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        scan360.scan_stacks_to_cloud(
+            stacks, cal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
+            params=scan360.Scan360Params(**{knob: "bogus"}), device="cpu")
+
+
+@pytest.mark.parametrize("knob, value", [("decode_strategy", "scan"),
+                                         ("reduce_chunk", 3)])
+def test_jax_only_knob_off_its_default_raises(synth_rig, stacks, knob,
+                                              value):
+    """``decode_strategy`` and ``reduce_chunk`` select nothing in the port
+    (one decode schedule, no chunked reduce): a value the JAX package
+    accepts but the port would ignore raises instead, before any work."""
+    cam_K, proj_K, R, T = synth_rig
+    cal = tri.make_calibration(cam_K, proj_K, R, T, CAM_H, CAM_W,
+                               SMALL_PROJ.width, SMALL_PROJ.height,
+                               device="cpu")
+    params = scan360.Scan360Params(**{knob: value})
+    with pytest.raises(ValueError, match=knob):
+        scan360.scan_stacks_to_cloud(
+            stacks, cal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
+            params=params, device="cpu")
+    with pytest.raises(ValueError, match=knob):
+        scan360.scan_stream_to_cloud(
+            iter(stacks), cal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
+            params=params, device="cpu")

@@ -411,8 +411,9 @@ def test_session_parameter_checks(rig):
     assert isinstance(splat.previewer, SplatPreviewMesher)
     with pytest.raises(NotImplementedError, match="step 8"):
         warm_session_programs()
-    with pytest.raises(NotImplementedError, match="step 5"):
-        scan360.scan_stream_to_cloud()
+    # The batch stream (bench config 2b) is ported: it needs two stops.
+    with pytest.raises(ValueError, match="at least 2 stops"):
+        scan360.scan_stream_to_cloud(iter([]), calib, 8, 7, device="cpu")
     sp = dataclasses.replace(StreamParams(), representation="voxels")
     with pytest.raises(ValueError, match="representation"):
         IncrementalSession(calib, 8, 7, params=sp, device="cpu")
