@@ -90,7 +90,24 @@ Phases, in order; any failure exits non-zero before the result line:
    4-stop TSDF session, a 4-stop splat session, the ring with the brick
    FPFH and the cleanup path of one walled stop, on the card and on the
    host (the plain versions), compared by outcome;
-8. a ``kernels`` JSON line, the card line again, and last the result line
+8. the deep-mesh path, bench configs 3c-3e as written (``bench.py:
+   1183-1305``): 3c, the noisy 2²⁰-point cylinder's normals (k = 12) and
+   its depth-10 band solve at 196,608 block slots, its fine iterations
+   within 2 of the JAX package's 49 on that cloud (bench 3c's gate of
+   ≤ 30, which neither package meets, printed); 3d and 3e, the anchored
+   2²⁰-point sphere at depths 14 and 15 solved and extracted, held to the
+   bench's gates (> 10⁵ faces, shell > 0.9, median and p90 surface error
+   < 3 voxels); each twice on the same inputs, bit for bit; then
+   ``"vcycle"``, ``"chebyshev"`` and additive with ``fine_dtype=
+   "bfloat16"`` once each on 3d's input, within |Δ median| < 0.35 and
+   |Δ p90| < 3 voxels of the float32 additive run; every row's
+   ``matvec_band`` launches equal to (1 + a)·(k + 1) for k iterations and
+   a fine matvecs a preconditioner application; then ``matvec_band`` and
+   ``classify_bricks`` on 3d's band against their plain versions, timed
+   there (``--deep-only``: build and this phase, no result line);
+9. a ``kernels`` JSON line (``matvec_band`` and ``classify_bricks`` also
+   carry their numbers on 3d's band and each deep row's launches under
+   ``deep_3d``), the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -126,6 +143,23 @@ BRICK_N = 1 << 20              # bench config 3b's cloud (bench.py:1135-1181)
 # gate on (scripts/torch_gate_witness.py): the model test skips the last two
 # stops, whose views the fused ring already covers.
 REFERENCE_SKIPS = ((22, "skipped_covisible"), (23, "skipped_covisible"))
+# The deep rows of bench config 3 (bench.py:1183-1305) and what the JAX
+# package's own chip recorded for them (BENCH_DETAILS.json:207-234): counts
+# of the computation, held beside the port's as a check, not a gate.
+DEEP_N = 1 << 20
+DEEP_MAX_BLOCKS = 196_608
+DEEP_RECORD = {"3c": {"blocks": 183_106},
+               "3d": {"blocks": 101_109, "faces": 13_163_810},
+               "3e": {"blocks": 101_113, "faces": 13_047_282}}
+# Bench config 3c gates its fine CG at ≤ 30 iterations (bench.py:1223).
+# The JAX package's additive scheme takes 49 on 3c's cloud and the port's
+# 48, on the same normals (scripts/torch_gate_witness.py --poisson1m, on
+# the host): the bench's gate is printed, and the port is held to the JAX
+# package's count within 2, the parity tests' tolerance.
+BENCH_3C_MAX_ITERS = 30
+REFERENCE_3C_ITERS = 49
+# 3c's normals (``estimate_normals``, k = 12, self included) on the card.
+NORMALS_K = 12
 
 
 def fail(msg: str) -> None:
@@ -1078,18 +1112,20 @@ def check_brick_knn(dev):
     inputs (the kernel path's set-up, ``brickknn_kernel.kernel_inputs``):
     at bench config 3b's shape (config 3's 2²⁰-point cylinder, k = 20,
     ``exclude_self``) and at a ragged cloud (100,003 points, 10% invalid,
-    a 100-point clump that overflows its brick, k = 30, self included).
-    Exact: d² bit-equal, ids equal; so too on the hand-made tables of
-    :func:`brick_hand_made`. Then, at the first shape, the kernel timed
-    beside its bound and issue-rate floor, the plain version and a library
-    yardstick
+    a 100-point clump that overflows its brick, k = 30, self included)
+    and at the shape bench 3c's normals give it (the same cylinder, k = 12,
+    self included, as ``estimate_normals`` asks). Exact: d² bit-equal, ids
+    equal; so too on the hand-made tables of :func:`brick_hand_made`. Then,
+    at the first and the last shape, the kernel timed beside its bound and
+    issue-rate floor, the plain version and a library yardstick
     (``torch.cdist`` in its default matmul mode + ``torch.topk``, two
     calls, over the same gathered candidates); recall of ``brick_knn``
     against brute force on 4,096 sampled rows, by direct differences (the
     matmul expansion cancels at the cloud's 500 mm offset, ~0.03 mm² of
     d², enough to reorder near neighbours); and the
     ``brick_knn`` wall (set-up, kernel, gather, and the exact rescue pass,
-    as bench 3b runs it) beside ``morton_knn``'s."""
+    as bench 3b runs it) beside ``morton_knn``'s. The k = 12 shape's
+    numbers go under ``deep_3c``."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
@@ -1106,39 +1142,24 @@ def check_brick_knn(dev):
     cases = (("2^20-point cylinder (bench config 3), k=20, exclude_self",
               cylinder_cloud(BRICK_N, 0), None, 20, True),
              ("ragged 100,003 points, 10% invalid, clump, k=30, self "
-              "included", ragged, ragged_valid, 30, False))
-    main, max_err = None, 0.0
+              "included", ragged, ragged_valid, 30, False),
+             (f"2^20-point cylinder (bench config 3c's normals), "
+              f"k={NORMALS_K}, self included", cylinder_cloud(BRICK_N, 0),
+              None, NORMALS_K, False))
+    inputs, errs = [], []
     for label, cloud, valid, k, excl in cases:
         pts = torch.from_numpy(cloud).to(dev)
         val = (torch.ones(len(cloud), dtype=torch.bool, device=dev)
                if valid is None else torch.from_numpy(valid).to(dev))
-        err, inputs = brick_exact(dev, pts, val, k, excl, label)
-        max_err = max(max_err, err)
-        if main is None:
-            main = (pts, val, *inputs, k, excl)
+        err, kin = brick_exact(dev, pts, val, k, excl, label)
+        errs.append(err)
+        inputs.append((pts, val, *kin, k, excl))
     brick_hand_made(dev)
-    pts, val, bricks, nbr, nnb, k, excl = main
-    c = bricks.shape[0]
-    timing = brick_timing(bricks, nbr, nnb, k, excl,
-                          "at the 2^20-point cylinder")
-    plain_ms = cuda_ms(
-        lambda: bk.brick_knn_cells_plain(bricks, nbr, nnb, k, excl), 2, 1)
-    # Library yardstick over the same gathered candidates; absent neighbour
-    # bricks point at a far-away dummy brick so they never rank.
-    coords = bricks[..., :3].contiguous().view(torch.float32)
-    coords = torch.where(torch.isfinite(coords), coords,
-                         torch.full((), 1e6, device=dev))
-    far = torch.full((1, 32, 3), 1e6, device=dev)
-    slot = torch.arange(27, device=dev)
-    nb_lib = torch.where(slot[None] < nnb[:, None], nbr.long(),
-                         torch.full((), c, device=dev))
-    cand = torch.cat([coords, far])[nb_lib].reshape(c, 27 * 32, 3)
-    lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(coords, cand), k, dim=2,
-                                        largest=False), 5, 1)
-    del cand
-    print(f"brick_knn_cells at the 2^20-point cylinder: plain "
-          f"{plain_ms:.3f} ms, library torch.cdist + torch.topk (two calls) "
-          f"{lib_ms:.3f} ms", flush=True)
+    timed = [brick_yardsticks(*inputs[i][2:], label) for i, label in (
+        (0, "at the 2^20-point cylinder"),
+        (2, f"at 3c's normals (k={NORMALS_K})"))]
+    pts, val, bricks, nbr, nnb, k, excl = inputs[0]
+    del inputs
 
     # Recall of the whole engine against brute force on 4,096 rows.
     d, i, v = brickknn.brick_knn(pts, k, points_valid=val, exclude_self=excl)
@@ -1175,7 +1196,43 @@ def check_brick_knn(dev):
                        "csrc/brick_knn.cu",
                 replaces="structured_light_for_3d_model_replication_tpu/ops/"
                          "brickknn_pallas.py:380",
-                max_abs_err=max_err, ms=timing["ms"], plain_ms=plain_ms,
+                max_abs_err=max(errs[:2]), **timed[0],
+                deep_3c=dict(timed[1], max_abs_err=errs[2]))
+
+
+def brick_yardsticks(bricks, nbr, nnb, k: int, excl: bool,
+                     label: str) -> dict:
+    """``brick_knn_cells`` on one set of kernel inputs: its time and bound
+    (:func:`brick_timing`), its plain version's time and a library
+    yardstick's, ``torch.cdist`` + ``torch.topk`` over the same gathered
+    candidates (absent neighbour bricks point at a far-away dummy brick so
+    they never rank)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel as bk,
+    )
+
+    dev = bricks.device
+    c = bricks.shape[0]
+    timing = brick_timing(bricks, nbr, nnb, k, excl, label)
+    plain_ms = cuda_ms(
+        lambda: bk.brick_knn_cells_plain(bricks, nbr, nnb, k, excl), 2, 1)
+    coords = bricks[..., :3].contiguous().view(torch.float32)
+    coords = torch.where(torch.isfinite(coords), coords,
+                         torch.full((), 1e6, device=dev))
+    far = torch.full((1, 32, 3), 1e6, device=dev)
+    slot = torch.arange(27, device=dev)
+    nb_lib = torch.where(slot[None] < nnb[:, None], nbr.long(),
+                         torch.full((), c, device=dev))
+    cand = torch.cat([coords, far])[nb_lib].reshape(c, 27 * 32, 3)
+    lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(coords, cand), k, dim=2,
+                                        largest=False), 5, 1)
+    del cand
+    print(f"brick_knn_cells {label}: plain {plain_ms:.3f} ms, library "
+          f"torch.cdist + torch.topk (two calls) {lib_ms:.3f} ms",
+          flush=True)
+    return dict(ms=timing["ms"], plain_ms=plain_ms,
                 bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
                 library_ms=lib_ms)
 
@@ -3290,6 +3347,318 @@ def small_rig_stream(dev, stacks, rig, proj) -> None:
         fail(f"the TSDF session on {dev.type} disagrees with the host run")
 
 
+def deep_sphere(n: int, r_sphere: float):
+    """Bench config 3d/3e's cloud (``bench.py:1230-1264``): ``n`` points of
+    a sphere of radius ``r_sphere`` from ``np.random.default_rng(4)`` with
+    their outward normals, and the eight anchors at ±1000 (normals +x)
+    that widen the scan's box so the fine voxel is ~1.2 point spacings."""
+    u = np.random.default_rng(4).normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    anchors = np.asarray([[s * 1000.0, t * 1000.0, v * 1000.0]
+                          for s in (-1, 1) for t in (-1, 1)
+                          for v in (-1, 1)], np.float32)
+    pts = np.vstack([(u * r_sphere).astype(np.float32), anchors])
+    nrm = np.vstack([u.astype(np.float32),
+                     np.tile([1.0, 0.0, 0.0], (8, 1)).astype(np.float32)])
+    return pts, nrm
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+
+
+@contextlib.contextmanager
+def host_normals_clock():
+    """While open, ``TriangleMesh.compute_vertex_normals`` (the host's
+    ``np.add.at`` passes at the end of an extraction) is timed: the yielded
+    list receives each call's wall seconds."""
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        TriangleMesh,
+    )
+
+    seconds = []
+    real = TriangleMesh.compute_vertex_normals
+
+    def timed(mesh):
+        t0 = time.perf_counter()
+        try:
+            return real(mesh)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    TriangleMesh.compute_vertex_normals = timed
+    try:
+        yield seconds
+    finally:
+        TriangleMesh.compute_vertex_normals = real
+
+
+def deep_solve(dev, pts, nrm, depth: int, max_blocks: int, extract: bool,
+               keep: bool = False, **knobs) -> dict:
+    """One row: ``reconstruct_sparse`` (``cg_iters=100``, the bench's
+    budget, and ``knobs``, the other fields of ``PoissonParams``) with its
+    stage times, then with ``extract`` the device extractor, the host's
+    vertex normals at its end timed apart; each kernel's launch counter
+    zeroed before and read after. With ``keep``, the first fine matvec's
+    operands and the classify phase's are kept (``"band"``,
+    ``"corners"``)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
+        marching,
+        marching_classify,
+        poisson_matvec,
+        poisson_sparse,
+    )
+
+    counters = {"matvec_band": poisson_matvec.matvec_band,
+                "classify_bricks": marching_classify.classify_bricks,
+                "brick_knn_cells": brickknn_kernel.brick_knn_cells}
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    timing = {}
+    cg = cg_matvecs(dev) if keep else contextlib.nullcontext({})
+    corners = corner_phases() if keep else contextlib.nullcontext({})
+    with cg as seen_cg, corners as seen_corners:
+        t0 = time.perf_counter()
+        grid, nb, stats = poisson_sparse.reconstruct_sparse(
+            pts, nrm, params=poisson_sparse.PoissonParams(
+                depth=depth, cg_iters=100, max_blocks=max_blocks, **knobs),
+            with_stats=True, timing=timing)
+        _sync(dev)
+        t1 = time.perf_counter()
+        solve_peak = _peak_gib(dev)
+        row = {"blocks": nb, "iters": stats["cg_iters_used"],
+               "coarse_iters": stats["coarse_iters_used"],
+               "solve_s": t1 - t0, "stages": timing,
+               "solve_peak_gib": solve_peak, "grid": grid}
+        if extract:
+            with host_normals_clock() as normals_s:
+                mesh = marching.extract_sparse(grid)
+            _sync(dev)
+            row.update(mesh=mesh, extract_s=time.perf_counter() - t1,
+                       host_normals_s=sum(normals_s))
+        row["wall_s"] = row["solve_s"] + row.get("extract_s", 0.0)
+    row["peak_gib"] = _peak_gib(dev)
+    row["launches"] = {k: c.launches for k, c in counters.items()}
+    if keep:
+        row["band"], row["corners"] = seen_cg["band"], seen_corners["band"]
+    return row
+
+
+def deep_gates(row, r_sphere: float, label: str) -> None:
+    """The bench's own gates on a sphere row (``bench.py:1276-1303``): more
+    than 100,000 faces, a shell fraction above 0.9 and median and p90
+    surface error below 3 voxels against the analytic radius."""
+    voxel = float(row["grid"].scale)
+    rad = np.linalg.norm(row["mesh"].vertices.astype(np.float64), axis=1)
+    shell = rad < 500.0               # the 8 anchor blobs are far out
+    err = np.abs(rad[shell] - r_sphere) / voxel
+    row.update(voxel=voxel, faces=len(row["mesh"].faces),
+               shell=float(shell.mean()), med=float(np.median(err)),
+               p90=float(np.percentile(err, 90)))
+    if not (row["faces"] > 100_000 and row["shell"] > 0.9
+            and row["med"] < 3.0 and row["p90"] < 3.0
+            and np.isfinite(row["mesh"].vertices).all()):
+        fail(f"{label} misses the bench's sphere gates: {row['faces']} "
+             f"faces, shell {row['shell']:.4f}, median {row['med']:.3f} "
+             f"and p90 {row['p90']:.3f} voxels")
+
+
+def deep_launches(row, precond: str, label: str, extract: bool) -> None:
+    """Each fine matvec goes through ``matvec_band``: ``(1 + a)·(k + 1)``
+    launches for k iterations and a matvecs an application; one
+    ``classify_bricks`` launch an extraction."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_sparse,
+    )
+
+    a = {"additive": 0, "vcycle": 2,
+         "chebyshev": poisson_sparse._CHEBY_DEGREE - 1}[precond]
+    want = (1 + a) * (row["iters"] + 1)
+    got = row["launches"]
+    if got["matvec_band"] != want:
+        fail(f"{label}: matvec_band launched {got['matvec_band']} times, "
+             f"not (1 + {a})·({row['iters']} + 1) = {want}")
+    if got["classify_bricks"] != int(extract):
+        fail(f"{label}: classify_bricks launched {got['classify_bricks']} "
+             f"times, not {int(extract)}")
+
+
+def deep_print(row, label: str) -> None:
+    stages = ", ".join(f"{k}={v:.3f}" for k, v in row["stages"].items())
+    extra = ""
+    if "mesh" in row:
+        extra = (f"; {row['faces']} faces, extraction {row['extract_s']:.3f}"
+                 f" s (of it the host's vertex normals "
+                 f"{row['host_normals_s']:.3f} s); "
+                 f"surface error median {row['med']:.3f}, p90 "
+                 f"{row['p90']:.3f} voxels (voxel {row['voxel']:.4f}), "
+                 f"shell {row['shell']:.4f}")
+    print(f"deep {label}: {row['blocks']} blocks, {row['iters']} fine "
+          f"iterations, coarse {row['coarse_iters']}; wall "
+          f"{row['wall_s']:.3f} s, solve {row['solve_s']:.3f} s ({stages})"
+          f"{extra}; peak device memory {row['solve_peak_gib']:.2f} GiB "
+          f"in the solve, {row['peak_gib']:.2f} GiB in the row (of 80 GB); "
+          f"launches {row['launches']}", flush=True)
+
+
+def deep_repeat(first, second, label: str) -> None:
+    """The warm-up and the timed run of a row, bit for bit."""
+    same = {"chi": torch_equal_bits(first["grid"].chi, second["grid"].chi),
+            "iters": first["iters"] == second["iters"],
+            "launches": first["launches"] == second["launches"]}
+    if "mesh" in first:
+        same["faces"] = (np.array_equal(first["mesh"].faces,
+                                        second["mesh"].faces)
+                         and np.array_equal(first["mesh"].vertices,
+                                            second["mesh"].vertices))
+    print(f"deep {label} repeat: bit-equal {same}", flush=True)
+    if not all(same.values()):
+        fail(f"deep {label}: the repeat gave other results {same}")
+
+
+def deep_mesh_path(dev, n: int = DEEP_N, max_blocks: int = DEEP_MAX_BLOCKS):
+    """Bench configs 3c, 3d and 3e as written, then the other fine-band
+    schemes on 3d's input, each row's kernel launches counted: 3c is the
+    noisy 2²⁰-point cylinder (the port's normals, k = 12, oriented outward
+    from (0, 0, 500), their ``brick_knn_cells`` launches counted with the
+    row's) at depth 10, its fine iterations within 2 of the JAX package's
+    49 on that cloud (the bench's ≤ 30 is printed); 3d and 3e
+    the anchored 2²⁰-point sphere at depths 14 (r = 50) and 15 (r = 25)
+    through ``extract_sparse``, held to the bench's sphere gates. Each of
+    the three runs twice on the same inputs and must repeat bit for bit.
+    ``"vcycle"``, ``"chebyshev"`` and additive with
+    ``fine_dtype="bfloat16"`` then run once each on 3d's input: the sphere
+    gates and, against 3d's float32 additive run, |Δ median| < 0.35 and
+    |Δ p90| < 3 voxels. Returns 3d's band operands and classify phase
+    operands, and every row's launches."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
+        pointcloud,
+    )
+
+    t_path = time.perf_counter()
+    launches = {}
+    cyl = torch.from_numpy(cylinder_cloud(n, 0)).to(dev)
+    brickknn_kernel.brick_knn_cells.launches = 0
+    nrm = pointcloud.estimate_normals(cyl, k=NORMALS_K)[0]
+    nrm = pointcloud.orient_normals(
+        cyl, nrm, torch.tensor([0.0, 0.0, 500.0], device=dev), outward=True)
+    _sync(dev)
+    normals_brick = brickknn_kernel.brick_knn_cells.launches
+    print(f"deep 3c normals: brick_knn_cells launched {normals_brick} "
+          f"times", flush=True)
+    if normals_brick == 0:
+        fail("3c's normals did not launch brick_knn_cells")
+    runs = [deep_solve(dev, cyl, nrm, 10, max_blocks, False)
+            for _ in range(2)]
+    deep_repeat(*runs, "3c")
+    row = runs[1]
+    deep_print(row, "3c (depth 10, 2^20-point cylinder)")
+    print(f"deep 3c: the JAX package's record {DEEP_RECORD['3c']}, the "
+          f"port's {row['blocks']} blocks", flush=True)
+    deep_launches(row, "additive", "3c", False)
+    print(f"deep 3c: the bench's gate of ≤ {BENCH_3C_MAX_ITERS} fine "
+          f"iterations met: {row['iters'] <= BENCH_3C_MAX_ITERS} "
+          f"({row['iters']}; the JAX package takes {REFERENCE_3C_ITERS} on "
+          f"this cloud)", flush=True)
+    if abs(row["iters"] - REFERENCE_3C_ITERS) > 2:
+        fail(f"3c: {row['iters']} fine iterations, not within 2 of the JAX "
+             f"package's {REFERENCE_3C_ITERS}")
+    launches["3c"] = dict(row["launches"], brick_knn_cells=normals_brick
+                          + row["launches"]["brick_knn_cells"])
+    del cyl, nrm, runs, row
+
+    keep = {}
+    for label, depth, r_sphere in (("3d", 14, 50.0), ("3e", 15, 25.0)):
+        pts_np, nrm_np = deep_sphere(n, r_sphere)
+        pts = torch.from_numpy(pts_np).to(dev)
+        nrm = torch.from_numpy(nrm_np).to(dev)
+        runs = [deep_solve(dev, pts, nrm, depth, max_blocks, True,
+                           keep=(label == "3d" and rep == 1))
+                for rep in range(2)]
+        deep_repeat(*runs, label)
+        row = runs[1]
+        deep_gates(row, r_sphere, label)
+        deep_print(row, f"{label} (depth {depth}, r = {r_sphere:g})")
+        print(f"deep {label}: the JAX package's record {DEEP_RECORD[label]},"
+              f" the port's {{'blocks': {row['blocks']}, 'faces': "
+              f"{row['faces']}}}", flush=True)
+        deep_launches(row, "additive", label, True)
+        launches[label] = row["launches"]
+        if label == "3d":
+            keep = {"band": row.pop("band"), "corners": row.pop("corners"),
+                    "base": row, "pts": pts, "nrm": nrm}
+        del runs, row
+
+    base = keep.pop("base")
+    for label, knobs in (("3d vcycle", dict(preconditioner="vcycle")),
+                         ("3d chebyshev", dict(preconditioner="chebyshev")),
+                         ("3d additive bf16", dict(fine_dtype="bfloat16"))):
+        row = deep_solve(dev, keep["pts"], keep["nrm"], 14, max_blocks, True,
+                         **knobs)
+        deep_gates(row, 50.0, label)
+        deep_print(row, label)
+        d_med, d_p90 = row["med"] - base["med"], row["p90"] - base["p90"]
+        print(f"deep {label} against the float32 additive run: "
+              f"{row['iters']} iterations (additive {base['iters']}), "
+              f"Δ median {d_med:+.4f}, Δ p90 {d_p90:+.4f} voxels",
+              flush=True)
+        if abs(d_med) >= 0.35 or abs(d_p90) >= 3.0:
+            fail(f"{label} leaves the float32 envelope: Δ median "
+                 f"{d_med:+.4f}, Δ p90 {d_p90:+.4f} voxels")
+        deep_launches(row, knobs.get("preconditioner", "additive"), label,
+                      True)
+        launches[label] = row["launches"]
+        del row
+    print(f"deep path: {time.perf_counter() - t_path:.1f} s", flush=True)
+    return keep["band"], keep["corners"], launches
+
+
+def deep_kernel_timings(band, corners) -> tuple[dict, dict]:
+    """``matvec_band`` on config 3d's band (its first fine matvec's
+    operands, 196,608 slots) and ``classify_bricks`` with its phase on the
+    band 3d's extraction classified, each against its plain version, then
+    timed there beside its byte bound (counted from the band's valid
+    slots), after the path's counts were read. Returns the two kernels'
+    numbers for the ``kernels`` line."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching_device as md,
+        poisson_matvec as pm,
+    )
+
+    x, W, nbr, bv = band
+    same = torch.equal(pm.matvec_band(x, W, nbr, bv),
+                       pm.matvec_band_reference(x, W, nbr, bv))
+    print(f"matvec_band on config 3d's band: equal to the plain version: "
+          f"{same}", flush=True)
+    if not same:
+        fail("matvec_band disagrees with its plain version on config 3d's "
+             "band")
+    mv = matvec_timing(x, W, nbr, bv, "config 3d's band")
+    del x, W, band
+    chi, nbr, bv, iso = corners
+    nb8 = md._nb8_table(nbr)
+    classify_agrees(chi, nb8, iso, bv, "config 3d's band")
+    cl = classify_timing(chi, nb8, iso, bv, "config 3d's band")
+    phase_timing(chi, nbr, bv, iso, "config 3d's band")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    return ({k: mv.get(k) for k in keys} | {"max_abs_err": 0.0},
+            {k: cl.get(k) for k in keys} | {"max_abs_err": 0.0})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3299,6 +3668,11 @@ def main() -> int:
                     help="after the checked runs, profile one more run of "
                          "the 360° path (multi-launch and fused) and of the "
                          "mesh path and print where the device time goes")
+    ap.add_argument("--deep-only", action="store_true",
+                    help="build, then the deep-mesh path (bench configs "
+                         "3c-3e and the other fine-band schemes) and its "
+                         "kernels on config 3d's band only (no result "
+                         "line)")
     ap.add_argument("--diagnose-determinism", action="store_true",
                     help="build, then run the 360° and mesh paths once "
                          "under torch.use_deterministic_algorithms(True, "
@@ -3337,6 +3711,9 @@ def main() -> int:
     if args.diagnose_determinism:
         diagnose_determinism(dev)
         return 0
+    if args.deep_only:
+        deep_kernel_timings(*deep_mesh_path(dev)[:2])
+        return 0
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
                check_nearest_one_batched(dev), check_matvec(dev, band),
@@ -3365,12 +3742,21 @@ def main() -> int:
     del ring
     launches["brick_knn_cells"] = cleanup_path(dev)
     small_rig_agreement(dev)
+    band, corners, deep = deep_mesh_path(dev)
+    for k, on_band in zip(kernels[3:5], deep_kernel_timings(band, corners)):
+        k["deep_3d"] = on_band | {"launches": {
+            row: n[k["name"]] for row, n in deep.items()}}
+    kernels[6]["deep_3c"]["launches"] = {
+        row: n["brick_knn_cells"] for row, n in deep.items()}
+    del band, corners
     for k in kernels:
         k["launches"] = launches[k["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in order}
-                                  for k in kernels]}), flush=True)
+    print(json.dumps({"kernels": [
+        {key: k[key] for key in order + tuple(
+            d for d in ("deep_3c", "deep_3d") if d in k)}
+        for k in kernels]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 in turns.
 
     python3 scripts/torch_compare_trees.py OLD NEW [--runs 2]
-        [--paths ring,splat,cleanup,fused]
+        [--paths ring,splat,cleanup,fused,poisson1m]
 
 OLD and NEW are roots of two checkouts of this repository (a parent
 commit unpacked with ``git archive`` into a git-ignored directory, and
@@ -32,7 +32,8 @@ launches) and as a call with its wrapper (CUDA events):
   band) and ``--runs`` times timed: wall and stage seconds, fine CG
   iterations and the device time per CG iteration; then ``nearest_one``
   at the ring's two most swept shapes and ``matvec_band`` on the mesh band
-  and the sphere band; then the classify phase
+  and the sphere band (with a digest of the mesh band's operands: x₀, W,
+  the neighbour table, validity); then the classify phase
   (``marching_device._phase_corners``) on the mesh's own band (kept in the
   warm-up run) and on the sphere band at iso 0: a digest of its frame,
   mask and count, its device time, its classify kernel's, a call's, the
@@ -54,6 +55,13 @@ launches) and as a call with its wrapper (CUDA events):
   host stacks (the hint-chained loop ring) — once to warm up and
   ``--runs`` times timed: wall, stage seconds (``register_s`` is the
   ring's), ``nearest_one`` launches and points.
+* ``poisson1m``: bench config 3c, the 2²⁰-point noisy cylinder's normals
+  (k = 12, oriented outward from (0, 0, 500)) and its depth-10 band solve
+  (``"additive"``, ``cg_iters=100``, 196,608 block slots), once to warm
+  up and ``--runs`` times timed: wall, stage seconds (``setup_s``,
+  ``coarse_s``, ``fine_cg_s``, ``iso_s``), fine iterations and blocks;
+  digests of the normals, of the band (block coordinates, validity,
+  neighbour table) and of χ.
 
 Then per kernel and stage the mean of each tree's turns and their ratio,
 and the card's name and power limit. Exits 1 if a turn fails or the two
@@ -94,7 +102,7 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-PATHS = ("ring", "splat", "cleanup", "fused")
+PATHS = ("ring", "splat", "cleanup", "fused", "poisson1m")
 
 
 def measure(runs: int, dev, paths=PATHS) -> dict:
@@ -170,6 +178,8 @@ def measure(runs: int, dev, paths=PATHS) -> dict:
         del stacks
     if "cleanup" in paths:
         cleanup_path(out, runs, dev, cs, proj, timed)
+    if "poisson1m" in paths:
+        poisson1m_path(out, runs, dev, cs)
     return out
 
 
@@ -219,6 +229,7 @@ def ring_paths(out, runs, dev, cs, stacks, calib, proj, timed) -> None:
             mesh_s = time.perf_counter() - t0
         if run == 0:
             sweeps, band, mesh_band = tally, cg["band"], corners["band"]
+            out["digest"]["operands mesh band"] = _digest(*band)
             continue
         row = {"scan_wall_s": scan_s, "mesh_wall_s": mesh_s,
                **{f"scan {k}": v for k, v in timing.items()},
@@ -414,6 +425,42 @@ def cleanup_path(out, runs, dev, cs, proj, timed) -> None:
         label = f"brick_knn_cells cleanup {bricks.shape[0]} cells k={k}"
         out["digest"][label] = _digest(*real(bricks, nbr, nnb, k, excl))
         timed(label, lambda: real(bricks, nbr, nnb, k, excl), 20)
+
+
+def poisson1m_path(out, runs, dev, cs) -> None:
+    """Bench config 3c (``bench.py:1183-1228``): the cylinder's normals and
+    its depth-10 band solve, warm-up + ``runs`` timed runs."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud,
+        poisson_sparse,
+    )
+
+    cyl = torch.from_numpy(cs.cylinder_cloud(1 << 20, 0)).to(dev)
+    nrm = pointcloud.estimate_normals(cyl, k=12)[0]
+    nrm = pointcloud.orient_normals(
+        cyl, nrm, torch.tensor([0.0, 0.0, 500.0], device=dev), outward=True)
+    out["digest"]["3c normals"] = _digest(nrm)
+    out["runs"]["poisson1m"] = []
+    for run in range(runs + 1):
+        timing = {}
+        cs._sync(dev)
+        t0 = time.perf_counter()
+        grid, nb, stats = poisson_sparse.reconstruct_sparse(
+            cyl, nrm, depth=10, cg_iters=100, max_blocks=196_608,
+            with_stats=True, timing=timing)
+        cs._sync(dev)
+        wall = time.perf_counter() - t0
+        if run == 0:
+            out["digest"]["3c band"] = _digest(
+                grid.block_coords, grid.block_valid, grid.nbr)
+            out["digest"]["3c chi"] = _digest(grid.chi)
+            continue
+        row = {"wall_s": wall, **timing,
+               "cg_iters": stats["cg_iters_used"], "blocks": nb}
+        out["runs"]["poisson1m"].append(row)
+        print(f"poisson1m run {run}: {json.dumps(row)}", flush=True)
 
 
 def main() -> int:

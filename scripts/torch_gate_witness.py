@@ -50,6 +50,35 @@ chip run's 1080×1920 camera:
 
     python scripts/torch_gate_witness.py --splat --height 1080 --width 1920 \
         --seeds 12,0,1,2 [--perturb 3]
+
+``--poisson1m`` witnesses the deep rows of bench config 3 instead: first
+3c's fine-CG iteration count (``bench.py:1183-1228``; its gate asks for
+≤ 30) — the 2²⁰-point noisy cylinder (``chip_smoke.cylinder_cloud``), its
+normals estimated once by the port on the host (k = 12, oriented outward
+from (0, 0, 500)), then ``reconstruct_sparse(depth=10, cg_iters=100,
+max_blocks=196_608)`` on that same numpy cloud and normals in the port and
+in the JAX package, one after the other, for each preconditioner named by
+``--preconditioners`` (default ``additive``; empty for none): blocks, fine
+and coarse iterations, the wall, and χ's largest difference on the band
+over max|χ|; then the band set-ups of 3d and 3e (``chip_smoke.
+deep_sphere`` at depths 14 and 15, 196,608 slots) in both packages:
+block counts, and whether block coordinates and neighbour tables are
+equal. ~7 min a preconditioner in the two packages on 8 cores, ~11 GB:
+
+    python scripts/torch_gate_witness.py --poisson1m \
+        [--preconditioners additive,jacobi]
+
+The card's normals differ from the host's (on the card ``estimate_normals``
+takes the brick kernel, on the host the Morton engine), so 3c is also
+witnessed on the card's own: ``--card-normals NPY`` (on a CUDA card; no
+JAX imported) computes them as ``chip_smoke.py``'s deep path does, saves
+them to NPY and prints the port's 3c iterations there on them; then
+``--poisson1m --normals NPY`` runs the 3c rows on the host on those normals
+(and skips the 3d/3e set-ups):
+
+    python scripts/torch_gate_witness.py --card-normals n3c.npy
+    python scripts/torch_gate_witness.py --poisson1m \
+        --normals n3c.npy
 """
 
 from __future__ import annotations
@@ -483,6 +512,118 @@ def splat_witness(args) -> int:
     return 0
 
 
+def poisson1m_witness(args) -> int:
+    """Bench config 3c in both packages on one cloud and its normals."""
+    import gc
+
+    import jax.numpy as jnp
+    import torch
+
+    import chip_smoke
+    from structured_light_for_3d_model_replication_tpu.ops import (
+        poisson_sparse as jps,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud,
+        poisson_sparse as tps,
+    )
+
+    pts = chip_smoke.cylinder_cloud(1 << 20, 0)
+    pt = torch.from_numpy(pts)
+    t0 = time.perf_counter()
+    if args.normals:
+        nrm_np = np.load(args.normals)
+        nrm = torch.from_numpy(nrm_np)
+        print(f"normals of {len(pts)} points from {args.normals}",
+              flush=True)
+    else:
+        nrm = pointcloud.estimate_normals(pt, k=chip_smoke.NORMALS_K)[0]
+        nrm = pointcloud.orient_normals(
+            pt, nrm, torch.tensor([0.0, 0.0, 500.0]), outward=True)
+        nrm_np = nrm.numpy()
+        print(f"normals of {len(pts)} points in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    records = []
+    for pre in args.preconditioners:
+        kw = dict(depth=10, cg_iters=100, max_blocks=196_608,
+                  preconditioner=pre, with_stats=True)
+        t0 = time.perf_counter()
+        g_t, nb_t, st_t = tps.reconstruct_sparse(pt, nrm, **kw)
+        t_port = time.perf_counter() - t0
+        chi_t = g_t.chi.numpy()
+        del g_t
+        gc.collect()
+        t0 = time.perf_counter()
+        g_j, nb_j, st_j = jps.reconstruct_sparse(pts, nrm_np, **kw)
+        t_jax = time.perf_counter() - t0
+        bv = np.asarray(g_j.block_valid)
+        chi_j = np.asarray(g_j.chi)
+        del g_j
+        rec = {"preconditioner": pre, "blocks": [nb_t, int(nb_j)],
+               "cg_iters_used": [st_t["cg_iters_used"],
+                                 st_j["cg_iters_used"]],
+               "coarse_iters_used": [st_t["coarse_iters_used"],
+                                     st_j["coarse_iters_used"]],
+               "wall_s": [t_port, t_jax],
+               "chi_rel_diff": float(np.abs(chi_t[bv] - chi_j[bv]).max()
+                                     / np.abs(chi_j).max())}
+        del chi_t, chi_j, bv
+        gc.collect()
+        records.append(rec)
+        print(f"3c {pre} (port, JAX): {json.dumps(rec)}", flush=True)
+    for label, depth, r_sphere in (() if args.normals else (
+            ("3d", 14, 50.0), ("3e", 15, 25.0))):
+        pts, nrm_np = chip_smoke.deep_sphere(1 << 20, r_sphere)
+        n = pts.shape[0]
+        t = tps._setup_sparse(torch.from_numpy(pts), torch.from_numpy(nrm_np),
+                              torch.ones(n, dtype=torch.bool), 2 ** depth,
+                              196_608, torch.tensor(4.0))
+        t = {"n_blocks": int(t[11]), "block_coords": t[4].numpy(),
+             "nbr": t[2].numpy()}
+        gc.collect()
+        j = jps._setup_sparse(jnp.asarray(pts), jnp.asarray(nrm_np),
+                              jnp.ones((n,), bool), 2 ** depth, 196_608,
+                              jnp.float32(4.0))
+        rec = {"row": label, "blocks": [t["n_blocks"], int(j[11])],
+               "block_coords_equal": bool(np.array_equal(
+                   t["block_coords"], np.asarray(j[4]))),
+               "nbr_equal": bool(np.array_equal(t["nbr"], np.asarray(j[2])))}
+        del t, j
+        gc.collect()
+        records.append(rec)
+        print(f"{label} set-up (port, JAX): {json.dumps(rec)}", flush=True)
+    print(json.dumps({"poisson1m": records}), flush=True)
+    return 0
+
+
+def card_normals(args) -> int:
+    """Bench 3c's normals on the card, saved; the port's 3c solve on them
+    there."""
+    import torch
+
+    import chip_smoke
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud,
+        poisson_sparse as tps,
+    )
+
+    dev = torch.device("cuda", 0)
+    print(chip_smoke.card_line(), flush=True)
+    pts = torch.from_numpy(chip_smoke.cylinder_cloud(1 << 20, 0)).to(dev)
+    nrm = pointcloud.estimate_normals(pts, k=chip_smoke.NORMALS_K)[0]
+    nrm = pointcloud.orient_normals(
+        pts, nrm, torch.tensor([0.0, 0.0, 500.0], device=dev), outward=True)
+    np.save(args.card_normals, nrm.cpu().numpy())
+    _, nb, st = tps.reconstruct_sparse(
+        pts, nrm, depth=10, cg_iters=100, max_blocks=196_608,
+        with_stats=True)
+    print(json.dumps({"card_normals": args.card_normals, "blocks": nb,
+                      "cg_iters_used": st["cg_iters_used"],
+                      "coarse_iters_used": st["coarse_iters_used"]}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--height", type=int, default=270)
@@ -500,7 +641,22 @@ def main() -> int:
                     help="--splat: also refit each package's volume this "
                          "many times with its TSDF moved by a float32 ulp "
                          "or two")
+    ap.add_argument("--poisson1m", action="store_true",
+                    help="witness bench config 3c's fine-CG iterations in "
+                         "both packages instead of the gate")
+    ap.add_argument("--preconditioners",
+                    type=lambda v: [p for p in v.split(",") if p],
+                    default=["additive"],
+                    help="--poisson1m: comma-separated preconditioners")
+    ap.add_argument("--normals", metavar="NPY",
+                    help="--poisson1m: 3c's normals from NPY (as "
+                         "--card-normals saves them), the 3c rows only")
+    ap.add_argument("--card-normals", metavar="NPY",
+                    help="on a CUDA card: save 3c's normals to NPY and "
+                         "solve 3c there on them (no JAX)")
     args = ap.parse_args()
+    if args.card_normals:
+        return card_normals(args)
 
     import jax
     import torch
@@ -509,6 +665,8 @@ def main() -> int:
     jax.config.update("jax_platforms", "cpu")
     if args.splat:
         return splat_witness(args)
+    if args.poisson1m:
+        return poisson1m_witness(args)
 
     from structured_light_for_3d_model_replication_tpu.models import (
         merge as jmerge,

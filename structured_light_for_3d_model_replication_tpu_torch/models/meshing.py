@@ -14,16 +14,16 @@ The analogue of the reference's `ProcessingLogic.reconstruct_stl`
 
 Representation ``"poisson"`` (and its alias ``"archival"``, the streaming
 session's watertight final format): depth ≤ 8 solves on a dense grid
-(:mod:`..ops.poisson`), depth 9-13 on the band-sparse one
-(:mod:`..ops.poisson_sparse`, kernel ``csrc/matvec.cu``), extracted by the
-device marching extractor on the card (kernel ``csrc/classify.cu``) or by
-the host oracle; ``cg_x0`` warm-starts either solve. Representation
-``"tsdf"`` fuses the oriented cloud into a brick-pool TSDF (:mod:`..fusion`,
-kernel ``csrc/combine.cu``) and extracts a vertex-coloured mesh.
-:func:`mesh_from_cloud_async` runs the same call on a pipelined worker. Not
-ported yet, each raising an error that names the ROADMAP step that brings
-it: mode ``"surface"`` (native ball pivoting, step 9), ``device_mesh``
-(step 8).
+(:mod:`..ops.poisson`), depth 9-16 on the band-sparse one
+(:mod:`..ops.poisson_sparse`, kernel ``csrc/matvec.cu``, any of its four
+preconditioners), extracted by the device marching extractor on the card
+(kernel ``csrc/classify.cu``) or by the host oracle; ``cg_x0`` warm-starts
+either solve. Representation ``"tsdf"`` fuses the oriented cloud into a
+brick-pool TSDF (:mod:`..fusion`, kernel ``csrc/combine.cu``) and extracts a
+vertex-coloured mesh. :func:`mesh_from_cloud_async` runs the same call on a
+pipelined worker. Not ported yet, each raising an error that names the
+ROADMAP step that brings it: mode ``"surface"`` (native ball pivoting, step
+3), ``device_mesh`` (step 4).
 """
 
 from __future__ import annotations
@@ -34,15 +34,13 @@ import time
 import numpy as np
 import torch
 
-from .._device import resolve_device, stage_clock
+from .._device import not_ported, resolve_device, stage_clock
 from ..io.ply import PointCloud
 from ..io.stl import TriangleMesh, write_stl
 from ..ops import marching, orientation, poisson, poisson_sparse
 from ..ops import pointcloud as pc_ops
 
 log = logging.getLogger(__name__)
-
-_not_ported = poisson_sparse._not_ported
 
 
 def ensure_oriented_normals(
@@ -114,11 +112,12 @@ def mesh_from_cloud(
 
     ``quantile_trim`` drops the given density quantile of triangles
     (reference default 2%; 0.0 is fully watertight, the ``mesh_360``
-    default). ``depth`` ≤ 8 solves on a 2^depth dense grid; depth 9-13 on
-    the band-sparse solver with ``preconditioner`` (``"additive"`` or
-    ``"jacobi"``), ``max_blocks`` (None = the solver's budget, with its
-    overflow retry) and ``extraction`` (``"auto"`` = device marching on the
-    card, the host oracle for a CPU run; ``"host"``; ``"device"``).
+    default). ``depth`` ≤ 8 solves on a 2^depth dense grid; depth 9-16 on
+    the band-sparse solver with ``preconditioner`` (``"additive"``,
+    ``"vcycle"``, ``"chebyshev"`` or ``"jacobi"``), ``max_blocks`` (None =
+    the solver's budget, with its overflow retry) and ``extraction``
+    (``"auto"`` = device marching on the card, the host oracle for a CPU
+    run; ``"host"``; ``"device"``).
     ``solve_stats`` (a caller's dict) receives the sparse solver's stats.
     ``cg_x0`` warm-starts the Poisson solve: at depth ≤ 8 a χ tensor at the
     solve resolution seeds the CG; at depth > 8 a dense
@@ -145,11 +144,11 @@ def mesh_from_cloud(
         raise ValueError(f"unknown representation {representation!r} "
                          "(expected 'poisson', 'tsdf' or 'archival')")
     if mode == "surface":
-        raise _not_ported("mode='surface' (native ball pivoting)",
-                          "step 9 (deep-mesh and surface options)")
+        raise not_ported("mode='surface' (native ball pivoting)",
+                         "step 3 (the file-level flow)")
     if device_mesh is not None:
-        raise _not_ported("the device_mesh sharded solve",
-                          "step 8 (devices and serving)")
+        raise not_ported("the device_mesh sharded solve",
+                         "step 4 (serving and devices)")
     dev = resolve_device(device)
     pts = np.asarray(cloud.points, np.float32)
     if pts.shape[0] < 16:

@@ -1,11 +1,15 @@
-"""Block-sparse screened-Poisson solve at depth 9-13 (counterpart of the JAX
+"""Block-sparse screened-Poisson solve at depth 9-16 (counterpart of the JAX
 ``ops/poisson_sparse.py``).
 
 1. **Coarse solve**: the dense screened Poisson of :mod:`.poisson` at
    ``min(depth, coarse_depth)`` gives the field far from the surface.
 2. **Active band**: the 8³ voxel blocks within one block of any sample,
    found by sort-unique of the occupied block keys and of their
-   27-dilation, compacted into ``max_blocks`` slots.
+   27-dilation, compacted into ``max_blocks`` slots. A block key is one
+   int64, 13 bits an axis, at every depth: it orders blocks as the JAX
+   package's int32 pack does through depth 13 and as its (hi, lo) pair
+   ``lexsort`` does at depths 14-16, so slots and neighbour tables are
+   the JAX package's at every depth.
 3. **Fine solve**: splat, divergence and the screened-Laplacian CG run only
    on the band, stored as flat (M, 512) bricks. Cross-block stencil halos
    come from the (M, 6) neighbour table; at the band's edge the halo is a
@@ -14,20 +18,23 @@
 4. The iso level is gathered from the bricks at the samples.
 
 The fine CG's operator is :func:`.poisson_matvec.matvec_band` — the CUDA
-kernel ``csrc/matvec.cu`` on the card — once for r₀ and once per iteration.
-The default preconditioner is ``"additive"``: scaled Jacobi plus a
+kernel ``csrc/matvec.cu`` on the card — once for r₀, once per iteration
+and, inside the preconditioner, twice per application for ``"vcycle"`` and
+three times (degree 4) for ``"chebyshev"``. The preconditioners are the
+JAX package's four: ``"additive"`` (default: scaled Jacobi plus a
 band-masked coarse correction through the separable restriction and
-prolongation of :func:`_prolong_band`, with the flexible (Polak-Ribière)
-beta; ``"jacobi"`` is the oracle. Both stop on the JAX package's rule,
-read on the host once per iteration, so the iteration counts match.
+prolongation of :func:`_prolong_band`), ``"vcycle"`` (Jacobi smoothing
+around that coarse correction), ``"chebyshev"`` (a Chebyshev polynomial of
+the Jacobi-scaled operator) under the flexible (Polak-Ribière) beta, and
+``"jacobi"``, the oracle. ``fine_dtype="bfloat16"`` demotes the
+preconditioner's relaxation terms to bf16, rounded op by op; matvecs,
+residuals and dot products stay float32. Every scheme stops on the JAX
+package's rule, read on the host once per iteration, so the iteration
+counts match.
 
 ``x0`` warm-starts the solve from a previous grid: a dense preview grid
 seeds the internal coarse solve (resampled world-aligned), a previous
 band-sparse grid seeds the matching band blocks (:func:`_warm_start_seed`).
-
-Not ported yet, each raising an error that names where it comes: the
-wide-key path (depth 14-16), the ``"vcycle"`` and ``"chebyshev"``
-preconditioners and ``fine_dtype="bfloat16"`` (ROADMAP Queue 1 step 9).
 """
 
 from __future__ import annotations
@@ -49,9 +56,18 @@ log = logging.getLogger(__name__)
 
 BS = 8                       # voxels per block edge
 _V = BS ** 3
-_KEY_BITS = 10               # per-axis bits of the single-int32 pack
+_KEY_BITS = 13               # per-axis bits of the int64 block key
 _KEY_MAX = (1 << _KEY_BITS) - 1
-_BIG = 1 << 30               # sentinel key: sorts after every real block
+_BIG = 1 << (3 * _KEY_BITS)  # sentinel key: sorts after every real block
+
+# The preconditioners' constants, per scheme: the JAX package's defaults.
+# ω weights the Jacobi branch against the coarse one (additive) or damps
+# the Jacobi smoother (vcycle, must stay < 1); the coarse PCG runs a fixed
+# count; the Chebyshev polynomial has degree 4 (3 fine matvecs an
+# application) over the Jacobi-scaled spectrum bounds.
+_SMOOTH_OMEGA = {"additive": 2.0, "vcycle": 0.8}
+_PRECOND_COARSE_ITERS = {"additive": 4, "vcycle": 8}
+_CHEBY_DEGREE, _CHEBY_LMIN, _CHEBY_LMAX = 4, 0.06, 2.0
 
 
 class SparsePoissonGrid(NamedTuple):
@@ -72,26 +88,42 @@ class SparsePoissonGrid(NamedTuple):
 
 
 class PoissonParams(NamedTuple):
-    """Knob set for :func:`reconstruct_sparse` (the JAX package's defaults;
-    ``"additive"`` and ``"jacobi"`` are the ported preconditioners, and the
-    additive one's internals are the JAX package's measured defaults,
-    ω = 2 and 4 coarse PCG iterations — no caller sets them)."""
+    """Knob set for :func:`reconstruct_sparse`, with the JAX package's
+    fields and defaults.
+
+    ``preconditioner``: ``"additive"`` (default; ω·D⁻¹r plus a band-masked
+    coarse correction of the same residual, no fine matvec inside),
+    ``"vcycle"`` (damped-Jacobi pre- and post-smoothing around that coarse
+    correction, 2 fine matvecs an application), ``"chebyshev"`` (a degree-4
+    Chebyshev polynomial of the Jacobi-scaled operator, 3 fine matvecs an
+    application, no coarse traffic) or ``"jacobi"`` (the oracle).
+    ``fine_dtype="bfloat16"`` runs the preconditioner's relaxation terms in
+    bf16 under the three preconditioned schemes; ``"jacobi"`` has none and
+    rejects it.
+
+    ``smooth_omega``, ``precond_coarse_iters``, ``cheby_degree``,
+    ``cheby_lmin`` and ``cheby_lmax`` keep the JAX package's fields so its
+    parameter sets construct here, but accept only their defaults: each
+    scheme runs with the constants those defaults select
+    (``_SMOOTH_OMEGA``, ``_PRECOND_COARSE_ITERS``, ``_CHEBY_*``), and
+    :func:`reconstruct_sparse` refuses another value."""
 
     depth: int = 10
     cg_iters: int = 200
     screen: float = 4.0
     max_blocks: int = 131_072
-    # None = depth-aware default min(8, max(7, depth - 7)).
+    # None = depth-aware default min(8, max(7, depth - 7)): the coarse/fine
+    # ratio stays ≤ 128 through depth 15; depth 16 runs at 256 and warns.
     coarse_depth: int | None = None
     coarse_iters: int = 300
     rtol: float = 3e-4
     preconditioner: str = "additive"
+    smooth_omega: float | None = None
+    precond_coarse_iters: int | None = None
+    cheby_degree: int = 4
+    cheby_lmin: float = 0.06
+    cheby_lmax: float = 2.0
     fine_dtype: str = "float32"
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {where} (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -100,15 +132,17 @@ def _not_ported(what: str, where: str) -> NotImplementedError:
 
 
 def _pack(bc: torch.Tensor) -> torch.Tensor:
-    """(..., 3) block coords (in range) → packed int32 key."""
-    bc = bc.to(torch.int32)
+    """(..., 3) block coords (in range) → int64 key ``x<<26 | y<<13 | z``:
+    ascending keys are (x, y, z) in lexicographic order."""
+    bc = bc.to(torch.int64)
     return ((bc[..., 0] << (2 * _KEY_BITS)) | (bc[..., 1] << _KEY_BITS)
             | bc[..., 2])
 
 
 def _unpack(key: torch.Tensor) -> torch.Tensor:
+    """int64 keys → (..., 3) int32 block coords."""
     return torch.stack([key >> (2 * _KEY_BITS), (key >> _KEY_BITS) & _KEY_MAX,
-                        key & _KEY_MAX], -1)
+                        key & _KEY_MAX], -1).to(torch.int32)
 
 
 def _rank_lookup1(table: torch.Tensor, q: torch.Tensor):
@@ -272,7 +306,7 @@ def _setup_sparse(points, normals, valid, resolution: int, max_blocks: int,
     nb_axis = R // BS
     n = points.shape[0]
     dev = points.device
-    big = torch.full((), _BIG, dtype=torch.int32, device=dev)
+    big = torch.full((), _BIG, dtype=torch.int64, device=dev)
     grid_pts, origin, scale = dense_poisson.normalize_points(points, valid, R)
 
     # Occupied blocks (one sort of N), then their 27-dilation (one sort of
@@ -495,83 +529,142 @@ def _cg_sparse(b, W, x0, nbr, block_valid, cg_iters: int,
     return torch.where(band, x, zero), it
 
 
-_OMEGA = 2.0          # additive: weight of the Jacobi branch
-_COARSE_ITERS = 4     # additive: fixed coarse PCG iterations
-
-
 def _pcg_sparse(b, W, x0, nbr, block_valid, block_coords, coarse_W,
                 resolution: int, coarse_resolution: int, cg_iters: int,
-                rtol: float = 3e-4):
-    """Flexible PCG with the additive two-level preconditioner
-    ``M⁻¹r = ω·D⁻¹r + P·Mc⁻¹·Pᵀ·r``: the Jacobi term and a coarse correction
-    of the same residual, summed — no fine matvec inside the
-    preconditioner. The coarse correction is a fixed-iteration Jacobi-PCG
-    on the dense coarse grid, masked to the band's footprint, with the
-    restriction scaled by ``cr = h_f/h_c`` and the coarse screen by
-    ``ratio²``. The outer loop uses the Polak-Ribière beta, which absorbs
-    the truncated coarse solve's nonlinearity. Returns (chi, iterations)."""
+                rtol: float = 3e-4, precond: str = "additive",
+                fine_dtype: str = "float32"):
+    """Flexible PCG with a two-level (additive or V-cycle) or Chebyshev
+    preconditioner; the outer loop uses the Polak-Ribière beta, which
+    absorbs a preconditioner that is not exactly linear. Returns (chi,
+    iterations).
+
+    * ``"additive"``: ``M⁻¹r = ω·D⁻¹r + P·Mc⁻¹·Pᵀ·r`` — the Jacobi term and
+      a coarse correction of the same residual, summed; no fine matvec
+      inside the preconditioner.
+    * ``"vcycle"``: a damped-Jacobi pre-smooth from zero, the coarse
+      correction of what it leaves, a post-smooth; 2 fine matvecs.
+
+      Both coarse corrections are a fixed-iteration Jacobi-PCG on the dense
+      coarse grid, masked to the band's footprint, with the restriction
+      scaled by ``cr = h_f/h_c`` and the coarse screen by ``ratio²``.
+    * ``"chebyshev"``: the three-term Chebyshev recurrence of degree
+      ``_CHEBY_DEGREE`` on the Jacobi-scaled operator over ``[_CHEBY_LMIN,
+      _CHEBY_LMAX]``; ``_CHEBY_DEGREE − 1`` fine matvecs, no coarse
+      traffic.
+
+    ω and the coarse PCG's iterations are the scheme's (``_SMOOTH_OMEGA``,
+    ``_PRECOND_COARSE_ITERS``).
+
+    ``fine_dtype="bfloat16"`` rounds the relaxation terms (the scaled
+    Jacobi branch, the smoothing steps, the Chebyshev state) to bf16 op by
+    op; the matvec, residuals, dot products and ``x`` stay float32."""
     R, Rc = resolution, coarse_resolution
     dev = b.device
     band = block_valid[:, None]
     zero = torch.zeros((), device=dev)
     dinv = torch.where(band, 1.0 / (6.0 + W), zero)
+    cdt = torch.bfloat16 if fine_dtype == "bfloat16" else torch.float32
+    dinv_l = dinv.to(cdt)
     m = block_coords.shape[0]
 
     def matvec(xf):
         return matvec_band(xf, W, nbr, block_valid)
 
-    # Separable transfer data for the 8 interior positions of every block,
-    # computed once per solve.
-    cr, Wn = _coarse_ratio_width(R, Rc)
-    crf = torch.tensor(cr, dtype=torch.float32, device=dev)
-    e_int = torch.arange(BS, dtype=torch.float32, device=dev)
-    wgt, flat_idx = _sep_weights(block_coords, e_int, cr, Rc, Wn)
-    flat_idx = flat_idx.reshape(-1)
-    ratio2 = torch.tensor(((R - 1.0) / (Rc - 1.0)) ** 2, dtype=torch.float32,
-                          device=dev)
-    Wc = coarse_W * ratio2
-    dinv_c = 1.0 / (6.0 + Wc)
+    def relax(v) -> float:
+        """A float32 scalar rounded to the relaxation dtype, as a Python
+        float: exact in that dtype, and a scalar operand keeps PyTorch's
+        vectorized elementwise kernels (a 0-d device tensor broadcasts)."""
+        return float(torch.tensor(np.float32(v), dtype=cdt))
 
-    plan = ScatterPlan(flat_idx, Rc ** 3)   # sorted once, used every step
+    if precond == "chebyshev":
+        # The recurrence's scalars do not depend on the data: float32, as
+        # the JAX package computes them from its float32 bounds.
+        f32 = np.float32
+        lo, hi = f32(_CHEBY_LMIN), f32(_CHEBY_LMAX)
+        theta, delta = f32(0.5) * (hi + lo), f32(0.5) * (hi - lo)
+        steps, rho_o = [], delta / theta
+        for _ in range(_CHEBY_DEGREE - 1):
+            rho = f32(1.0) / (f32(2.0) * theta / delta - rho_o)
+            steps.append((relax(rho), relax(rho_o)))
+            rho_o = rho
+        inv_theta, two_delta = relax(f32(1.0) / theta), relax(f32(2.0) / delta)
 
-    def restrict(rf):
-        return _restrict(rf, wgt, plan, crf)
+        def apply_M(r):
+            rl = r.to(cdt)
+            z = inv_theta * dinv_l * rl
+            z_prev = torch.zeros_like(z)
+            for rho, rho_o in steps:
+                resid = dinv_l * (rl - matvec(z.float()).to(cdt))
+                z_prev, z = z, z + rho * (two_delta * resid
+                                          + rho_o * (z - z_prev))
+            return torch.where(band, z.float(), zero)
 
-    def prolong(ec_flat):
-        """Coarse correction (Rc³,) → band interiors (M, 512)."""
-        G = ec_flat[flat_idx].reshape(m, Wn, Wn, Wn)
-        return _interp3(wgt, G).reshape(m, _V)
+    else:
+        om_l = relax(_SMOOTH_OMEGA[precond])
+        # Separable transfer data for the 8 interior positions of every
+        # block, computed once per solve.
+        cr, Wn = _coarse_ratio_width(R, Rc)
+        crf = torch.tensor(cr, dtype=torch.float32, device=dev)
+        e_int = torch.arange(BS, dtype=torch.float32, device=dev)
+        wgt, flat_idx = _sep_weights(block_coords, e_int, cr, Rc, Wn)
+        flat_idx = flat_idx.reshape(-1)
+        ratio2 = torch.tensor(((R - 1.0) / (Rc - 1.0)) ** 2,
+                              dtype=torch.float32, device=dev)
+        Wc = coarse_W * ratio2
+        dinv_c = 1.0 / (6.0 + Wc)
 
-    # Band footprint on the coarse grid (cells a band field restricts to):
-    # the coarse PCG is fixed to it, zero-Dirichlet outside.
-    cmask = (restrict(band.to(torch.float32).expand(m, _V)) > 0.0).to(
-        torch.float32).reshape(Rc, Rc, Rc)
+        plan = ScatterPlan(flat_idx, Rc ** 3)   # sorted once, used every step
 
-    def matvec_c(xc):
-        return cmask * -(dense_poisson.laplacian(xc) - Wc * xc)
+        def restrict(rf):
+            return _restrict(rf, wgt, plan, crf)
 
-    def coarse_solve(rc):
-        r = cmask * rc.reshape(Rc, Rc, Rc)
-        x = torch.zeros_like(r)
-        z = dinv_c * r
-        p = z
-        rz = vdot(r, z)
-        for _ in range(_COARSE_ITERS):
-            Ap = matvec_c(p)
-            alpha = rz / vdot(p, Ap).clamp_min(1e-30)
-            x = x + alpha * p
-            r = r - alpha * Ap
+        def prolong(ec_flat):
+            """Coarse correction (Rc³,) → band interiors (M, 512)."""
+            G = ec_flat[flat_idx].reshape(m, Wn, Wn, Wn)
+            return _interp3(wgt, G).reshape(m, _V)
+
+        # Band footprint on the coarse grid (cells a band field restricts
+        # to): the coarse PCG is fixed to it, zero-Dirichlet outside.
+        cmask = (restrict(band.to(torch.float32).expand(m, _V)) > 0.0).to(
+            torch.float32).reshape(Rc, Rc, Rc)
+
+        def matvec_c(xc):
+            return cmask * -(dense_poisson.laplacian(xc) - Wc * xc)
+
+        def coarse_solve(rc):
+            r = cmask * rc.reshape(Rc, Rc, Rc)
+            x = torch.zeros_like(r)
             z = dinv_c * r
-            rz_new = vdot(r, z)
-            beta = rz_new / rz.clamp_min(1e-30)
-            p = z + beta * p
-            rz = rz_new
-        return (cmask * x).reshape(-1)
+            p = z
+            rz = vdot(r, z)
+            for _ in range(_PRECOND_COARSE_ITERS[precond]):
+                Ap = matvec_c(p)
+                alpha = rz / vdot(p, Ap).clamp_min(1e-30)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                z = dinv_c * r
+                rz_new = vdot(r, z)
+                beta = rz_new / rz.clamp_min(1e-30)
+                p = z + beta * p
+                rz = rz_new
+            return (cmask * x).reshape(-1)
 
-    def apply_M(r):
-        ec = coarse_solve(restrict(r))
-        z = _OMEGA * dinv * r + torch.where(band, prolong(ec), zero)
-        return torch.where(band, z, zero)
+        def smooth(r):
+            """ω·D⁻¹r, rounded in the relaxation dtype, back in float32."""
+            return (om_l * dinv_l * r.to(cdt)).float()
+
+        if precond == "additive":
+            def apply_M(r):
+                ec = coarse_solve(restrict(r))
+                z = smooth(r) + torch.where(band, prolong(ec), zero)
+                return torch.where(band, z, zero)
+        else:
+            def apply_M(r):
+                z = smooth(r)
+                ec = coarse_solve(restrict(r - matvec(z)))
+                z = z + torch.where(band, prolong(ec), zero)
+                z = z + smooth(r - matvec(z))
+                return torch.where(band, z, zero)
 
     x = x0
     r = b - matvec(x)
@@ -710,6 +803,20 @@ def _warm_start_seed(seed: torch.Tensor, prev: SparsePoissonGrid,
     return seed, int(hit.sum())
 
 
+def _check_jax_only_knobs(params: PoissonParams) -> None:
+    """Refuse a non-default value of the JAX package's preconditioner
+    fields, which select nothing in the port (see :class:`PoissonParams`)."""
+    default = PoissonParams()
+    for knob in ("smooth_omega", "precond_coarse_iters", "cheby_degree",
+                 "cheby_lmin", "cheby_lmax"):
+        if getattr(params, knob) != getattr(default, knob):
+            raise ValueError(
+                f"{knob}={getattr(params, knob)!r}: the port runs each "
+                f"preconditioner with the JAX package's default constants, "
+                f"so only the default {getattr(default, knob)!r} is "
+                f"accepted")
+
+
 def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
                        valid: torch.Tensor | None = None,
                        depth: int | None = None,
@@ -723,19 +830,22 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
                        params: PoissonParams | None = None,
                        with_stats: bool = False, x0=None,
                        timing: dict | None = None):
-    """Band-sparse screened Poisson at depth 9-13 on the device the points
-    lie on. Returns (SparsePoissonGrid, n_blocks) and, with ``with_stats``,
-    a dict with ``cg_iters_used``, ``coarse_iters_used``,
-    ``preconditioner``, ``fine_dtype`` and ``warm_start_blocks`` (always 0
-    here).
+    """Band-sparse screened Poisson at depth 9-16 on the device the points
+    lie on, as the reference's octree accepts (default depth 10, > 16
+    rejected: `server/processing.py:207-208,293`). Returns
+    (SparsePoissonGrid, n_blocks) and, with ``with_stats``, a dict with
+    ``cg_iters_used``, ``coarse_iters_used``, ``preconditioner``,
+    ``fine_dtype`` and ``warm_start_blocks`` (band blocks ``x0`` seeded or
+    covered; 0 = cold).
 
     Knobs come either as keywords or bundled in ``params`` (the single
     source of defaults, :class:`PoissonParams`), not both. A band larger
     than ``max_blocks`` is detected after set-up and rebuilt with a larger
-    budget (1.25× the true size + 1024), at most twice. ``timing``, when
-    given, receives the wall seconds of ``setup_s``, ``coarse_s`` (coarse
-    solve and prolongation onto the band), ``fine_cg_s`` and ``iso_s``,
-    each measured with a device synchronize."""
+    budget (1.25× the true size + 1024), at most twice; a retried budget
+    above ~8 GB of solver state warns. ``timing``, when given, receives the
+    wall seconds of ``setup_s``, ``coarse_s`` (coarse solve and
+    prolongation onto the band), ``fine_cg_s`` and ``iso_s``, each measured
+    with a device synchronize."""
     given = {k: v for k, v in dict(
         depth=depth, cg_iters=cg_iters, screen=screen,
         max_blocks=max_blocks, coarse_depth=coarse_depth,
@@ -750,27 +860,24 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
     depth, cg_iters, screen = params.depth, params.cg_iters, params.screen
     max_blocks, coarse_depth = params.max_blocks, params.coarse_depth
     coarse_iters, rtol = params.coarse_iters, params.rtol
-    preconditioner = params.preconditioner
-    if preconditioner in ("vcycle", "chebyshev"):
-        raise _not_ported(f"the {preconditioner!r} preconditioner",
-                          "step 9 (deep-mesh and surface options)")
-    if preconditioner not in ("additive", "jacobi"):
+    preconditioner, fine_dtype = params.preconditioner, params.fine_dtype
+    if preconditioner not in ("additive", "vcycle", "chebyshev", "jacobi"):
         raise ValueError(
             f"preconditioner must be 'additive', 'vcycle', 'chebyshev' "
             f"or 'jacobi', got {preconditioner!r}")
-    if params.fine_dtype == "bfloat16":
-        raise _not_ported("fine_dtype='bfloat16'",
-                          "step 9 (deep-mesh and surface options)")
-    if params.fine_dtype != "float32":
+    if fine_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"fine_dtype must be 'float32' or 'bfloat16', "
-                         f"got {params.fine_dtype!r}")
+                         f"got {fine_dtype!r}")
+    if fine_dtype != "float32" and preconditioner == "jacobi":
+        raise ValueError(
+            "fine_dtype='bfloat16' rides the preconditioned schemes' "
+            "relaxation stage; the 'jacobi' oracle path has none and "
+            "stays fp32 bit-for-bit — pick additive/vcycle/chebyshev")
+    _check_jax_only_knobs(params)
     if depth > 16:
         raise ValueError(f"depth={depth} > 16: rejected exactly like the "
                          "reference's octree guard "
                          "(server/processing.py:207-208)")
-    if (2 ** depth) // BS > (1 << _KEY_BITS):
-        raise _not_ported(f"the wide-key path (depth {depth}, 14-16)",
-                          "step 9 (deep-mesh and surface options)")
     if 2 ** depth < 4 * BS:
         raise ValueError(f"depth={depth} too shallow for the block solver; "
                          "use ops.poisson.reconstruct")
@@ -781,7 +888,22 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
             f"reconstruct_sparse call (or a dense poisson.PoissonGrid "
             f"preview), got {type(x0).__name__}")
     if coarse_depth is None:
+        # Depth-aware coarse grid: the coarse/fine ratio stays ≤ 128 (at
+        # 256 the Dirichlet halo folded from the coarse field carries the
+        # coarse surface's error into the band), capped at 256³.
         coarse_depth = min(8, max(7, depth - 7))
+        if coarse_depth > 7:
+            log.info("sparse Poisson depth=%d: coarse grid auto-raised "
+                     "to %d^3 (coarse/fine ratio cap 128)", depth,
+                     2 ** coarse_depth)
+        if depth - coarse_depth > 7:
+            log.warning(
+                "sparse Poisson depth=%d: coarse/fine ratio is %d "
+                "(memory-capped at coarse 256³) — surface error can "
+                "carry the unresolved-coarse-halo tail the ratio-128 "
+                "cap removes at depth ≤ 15; pass an explicit "
+                "coarse_depth to trade memory for accuracy", depth,
+                2 ** (depth - coarse_depth))
     points = points.to(torch.float32)
     normals = normals.to(torch.float32)
     dev = points.device
@@ -807,6 +929,15 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
             "of %d — rebuilding the band with a larger budget", depth,
             nb_host, max_blocks)
         max_blocks = int(nb_host * 1.25) + 1024
+        est_gb = max_blocks * _V * 4 * 8 / 1e9
+        if est_gb > 8.0:
+            log.warning(
+                "sparse Poisson depth=%d: the retried band needs ~%.1f GB "
+                "of solver state (%d blocks) — deep depths on dense "
+                "clouds are memory-hungry by nature (the reference's "
+                "octree warns the same way at depth > 16); consider a "
+                "shallower depth or a downsampled cloud", depth, est_gb,
+                max_blocks)
     t1 = clock()
 
     rc = 2 ** min(coarse_depth, depth)
@@ -838,7 +969,8 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
         coarse_W = dense_poisson.screen_weights(coarse.density, scr)
         chi, cg_used = _pcg_sparse(
             b, W, seed, nbr, block_valid, block_coords, coarse_W, 2 ** depth,
-            rc, cg_iters, rtol=rtol)
+            rc, cg_iters, rtol=rtol, precond=preconditioner,
+            fine_dtype=fine_dtype)
     del b, seed, W, coarse
     t3 = clock()
     log.info("sparse Poisson depth=%d: fine CG (%s) stopped after %d/%d "
@@ -854,7 +986,7 @@ def reconstruct_sparse(points: torch.Tensor, normals: torch.Tensor,
         return grid, nb_host, {"cg_iters_used": cg_used,
                                "coarse_iters_used": coarse_used,
                                "preconditioner": preconditioner,
-                               "fine_dtype": params.fine_dtype,
+                               "fine_dtype": fine_dtype,
                                "warm_start_blocks": warm_blocks}
     return grid, nb_host
 

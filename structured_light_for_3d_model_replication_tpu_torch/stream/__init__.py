@@ -8,7 +8,7 @@ Entry point: :class:`~.session.IncrementalSession` (``add_stop`` ×N →
 warm-up before a serving session) is not ported yet.
 """
 
-from ..ops.poisson_sparse import _not_ported
+from .._device import not_ported
 from .preview import PreviewMesher, make_previewer
 from .session import (
     FinalizeResult,
@@ -22,8 +22,8 @@ from .session import (
 def warm_session_programs(*args, **kwargs):
     """The JAX package's session warm-up; in the port its job would be
     building the kernels and priming cuBLAS/cuSOLVER before a session."""
-    raise _not_ported("stream.warm_session_programs",
-                      "step 8 (devices, serving, tools)")
+    raise not_ported("stream.warm_session_programs",
+                     "step 4 (serving and devices)")
 
 
 __all__ = [

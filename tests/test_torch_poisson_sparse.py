@@ -13,15 +13,29 @@ Tolerances:
   ``matvec_pallas`` in interpret mode to ``atol=1e-5·scale, rtol=1e-5``
   (the tolerance of tests/test_poisson_pallas.py), zero outside the band;
   the wrapper on a CPU tensor is the plain version itself;
-* solve: ``cg_iters_used`` and ``coarse_iters_used`` within ±2 of JAX; χ
-  on the band to 1e-3·max|χ| and the iso level to 1e-4·max|χ| — the
-  additive preconditioner's products and every dot product sum in another
-  order, which CG carries along; Jacobi stops close to its cap here, so its
-  χ is held to 2e-3·max|χ|.
+* solve, for each of the four preconditioners: ``cg_iters_used`` and
+  ``coarse_iters_used`` within ±2 of JAX; χ on the band to 1e-3·max|χ| and
+  the iso level to 1e-4·max|χ| — the two-level preconditioners' products
+  and every dot product sum in another order, which CG carries along;
+  Jacobi stops close to its cap here, so its χ is held to 2e-3·max|χ|;
+* bf16 relaxation (``fine_dtype="bfloat16"``) against the JAX package's
+  bf16 solve: iterations within ±2, χ to 1e-3·max|χ| (ten times tighter
+  than the 1e-2 the JAX package holds between schemes; these runs agree to
+  ~1e-4) and the iso level to 1e-4·max|χ|. Each bf16 op is rounded on its
+  own in both packages here; where a compiler fuses a chain with one
+  rounding, the preconditioner differs in its last bf16 bits, which the
+  flexible PCG absorbs. That end-to-end bound would not tell a bf16
+  relaxation from a float32 one (the two solves differ by less), so one
+  PCG step from zero is also held against the JAX package's bf16 step run
+  op by op (``jax.disable_jit``, each bf16 op rounded on its own, as the
+  port does): to 5e-4·max|x|, where these runs agree to ~1.6e-4 and the
+  port's float32 step lies 1.8e-3 to 5e-3 away;
+* rejections: the JAX package's exception type and message.
 """
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,29 +172,72 @@ def test_matvec_wrapper_checks_operands(band):
         poisson_matvec.matvec_band(rhs[:, :64], W[:, :64], nbr, bv)
 
 
-@pytest.mark.parametrize("precond", ["additive", "jacobi"])
-def test_reconstruct_sparse_matches_jax(precond):
-    pts, nrm = _sphere(8000, 0)
-    kw = dict(depth=6, cg_iters=80, max_blocks=2048, coarse_depth=5,
-              coarse_iters=100, preconditioner=precond, with_stats=True)
-    g_j, nb_j, st_j = jps.reconstruct_sparse(pts, nrm, **kw)
+def _solves_agree(pts, nrm, params, tol):
+    """One solve in each package on the same cloud: band, neighbours and
+    counts exact, χ to ``tol``·max|χ| and iso to 1e-4·max|χ|."""
+    g_j, nb_j, st_j = jps.reconstruct_sparse(
+        pts, nrm, params=jps.PoissonParams(**params), with_stats=True)
     g_t, nb_t, st_t = poisson_sparse.reconstruct_sparse(
-        torch.tensor(pts), torch.tensor(nrm), **kw)
+        torch.tensor(pts), torch.tensor(nrm),
+        params=poisson_sparse.PoissonParams(**params), with_stats=True)
     assert nb_t == int(nb_j)
     assert abs(st_t["cg_iters_used"] - st_j["cg_iters_used"]) <= 2
     assert abs(st_t["coarse_iters_used"] - st_j["coarse_iters_used"]) <= 2
-    assert st_t["preconditioner"] == precond
+    for key in ("preconditioner", "fine_dtype"):
+        assert st_t[key] == st_j[key] == params.get(key, st_j[key])
     bv = np.asarray(g_j.block_valid)
     np.testing.assert_array_equal(g_t.block_valid.numpy(), bv)
     np.testing.assert_array_equal(g_t.nbr.numpy(), np.asarray(g_j.nbr))
     chi_j = np.asarray(g_j.chi)
     scale = np.abs(chi_j).max()
-    tol = 1e-3 if precond == "additive" else 2e-3
     np.testing.assert_allclose(g_t.chi.numpy()[bv], chi_j[bv],
                                atol=tol * scale, rtol=0)
     assert np.all(g_t.chi.numpy()[~bv] == 0.0)
     assert abs(float(g_t.iso) - float(g_j.iso)) <= 1e-4 * scale
     assert g_t.resolution == g_j.resolution == 64
+
+
+_SMALL = dict(depth=6, cg_iters=80, max_blocks=2048, coarse_depth=5,
+              coarse_iters=100)
+
+
+@pytest.mark.parametrize("precond",
+                         ["additive", "jacobi", "vcycle", "chebyshev"])
+def test_reconstruct_sparse_matches_jax(precond):
+    pts, nrm = _sphere(8000, 0)
+    _solves_agree(pts, nrm, dict(_SMALL, preconditioner=precond),
+                  2e-3 if precond == "jacobi" else 1e-3)
+
+
+@pytest.mark.parametrize("precond", ["additive", "vcycle", "chebyshev"])
+def test_bf16_relaxation_matches_jax(precond):
+    pts, nrm = _sphere(8000, 0)
+    _solves_agree(pts, nrm, dict(_SMALL, preconditioner=precond,
+                                 fine_dtype="bfloat16"), 1e-3)
+
+
+@pytest.mark.parametrize("precond", ["additive", "vcycle", "chebyshev"])
+def test_bf16_relaxation_step_matches_jax(precond):
+    """One PCG step from zero, ``x₁ = α·M⁻¹b``, in bf16 against the JAX
+    package's bf16 step run op by op: the tolerance sits well below the gap
+    to the port's float32 step, so a relaxation left in float32 fails."""
+    pts, nrm = _sphere(8000, 0)
+    j, _ = _setups(pts, nrm, 6, 2048)
+    rhs, W, nbr, bv, bc = j[:5]
+    coarse_W = np.random.default_rng(1).uniform(
+        0.0, 1.0, (32, 32, 32)).astype(np.float32)
+    args = (rhs, W, np.zeros_like(rhs), nbr, bv, bc, coarse_W)
+    with jax.disable_jit():
+        ref = np.asarray(jps._pcg_sparse(
+            *(jnp.asarray(a) for a in args), 64, 32, 1, precond=precond,
+            fine_dtype="bfloat16", use_pallas=False)[0])
+    step = {dt: poisson_sparse._pcg_sparse(
+        *(torch.tensor(a) for a in args), 64, 32, 1, precond=precond,
+        fine_dtype=dt)[0].numpy() for dt in ("bfloat16", "float32")}
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(step["bfloat16"], ref, atol=5e-4 * scale,
+                               rtol=0)
+    assert np.abs(step["float32"] - ref).max() > 1e-3 * scale
 
 
 def test_budget_overflow_rebuilds_the_band():
@@ -204,22 +261,23 @@ def test_budget_overflow_rebuilds_the_band():
     assert blocks(g_small) == blocks(g_big)
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(preconditioner="vcycle"), "'vcycle' preconditioner"),
-    (dict(preconditioner="chebyshev"), "'chebyshev' preconditioner"),
-    (dict(depth=14), "wide-key path"),
-    (dict(depth=16), "wide-key path"),
-])
-def test_left_out_options_name_their_step(kw, what):
-    pts, nrm = (torch.tensor(a) for a in _sphere(200, 2))
-    with pytest.raises(NotImplementedError, match="not ported yet") as exc:
-        poisson_sparse.reconstruct_sparse(pts, nrm, **kw)
-    assert what in str(exc.value) and "ROADMAP Queue 1" in str(exc.value)
-    params = poisson_sparse.PoissonParams(fine_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        poisson_sparse.reconstruct_sparse(pts, nrm, params=params)
-    with pytest.raises(ValueError, match="preconditioner"):
-        poisson_sparse.reconstruct_sparse(pts, nrm, preconditioner="nope")
+@pytest.mark.parametrize("params", [
+    dict(depth=17), dict(preconditioner="nope"),
+    dict(fine_dtype="float16"),
+    dict(preconditioner="jacobi", fine_dtype="bfloat16"),
+], ids=["depth-17", "preconditioner", "fine-dtype", "bf16-jacobi"])
+def test_rejects_like_jax(params):
+    """What the JAX package rejects, the port rejects, with the same
+    exception type and message, before any work."""
+    pts, nrm = _sphere(200, 2)
+    with pytest.raises(Exception) as ref:
+        jps.reconstruct_sparse(pts, nrm, params=jps.PoissonParams(**params))
+    with pytest.raises(type(ref.value)) as got:
+        poisson_sparse.reconstruct_sparse(
+            torch.tensor(pts), torch.tensor(nrm),
+            params=poisson_sparse.PoissonParams(**params))
+    assert type(ref.value) is ValueError
+    assert str(got.value) == str(ref.value)
 
 
 def test_grid_from_numpy_carries_every_field():

@@ -409,7 +409,7 @@ def test_session_parameter_checks(rig):
                                params=StreamParams(representation="splat"),
                                device="cpu")
     assert isinstance(splat.previewer, SplatPreviewMesher)
-    with pytest.raises(NotImplementedError, match="step 8"):
+    with pytest.raises(NotImplementedError, match="step 4"):
         warm_session_programs()
     # The batch stream (bench config 2b) is ported: it needs two stops.
     with pytest.raises(ValueError, match="at least 2 stops"):
