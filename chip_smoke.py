@@ -8,6 +8,7 @@ the cleanup path of a single capture, with its CUDA kernels.
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
     python3 chip_smoke.py --profile        # full run + profiled 360° paths
+    python3 chip_smoke.py --files-only     # build + the files phase only
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -105,9 +106,31 @@ Phases, in order; any failure exits non-zero before the result line:
    a fine matvecs a preconditioner application; then ``matvec_band`` and
    ``classify_bricks`` on 3d's band against their plain versions, timed
    there (``--deep-only``: build and this phase, no result line);
+8b. the files phase: the 24-stop ring written by the port's ``write_frame``
+   as the reference's auto-scan session (``obj_15deg_AUTO/
+   obj_<angle>deg_scan/01.png … 46.png``, PNG) with its ``.mat``
+   calibration, read back bit for bit, then the port's command-line tools
+   driven in this process (``cli.main``) with every launch counter zeroed
+   before and read after each tool: ``scan-360`` → a merged PLY that must
+   equal, bit for bit, ``scan_stacks_to_cloud`` in this process on the
+   same stacks with the ``Scan360Params`` the tool builds; ``scan-360
+   --fused``; ``mesh --depth 10`` (> 10⁴ faces, median ≤ 1 mm from the
+   spheres, ``matvec_band`` ≥ 1 and ``classify_bricks`` 1 launch);
+   ``process-cloud`` of one stop then ``mesh --remove-background
+   --remove-outliers`` (the brick kernel); ``mesh --mode surface
+   --orientation tangent`` on the card and on the host, which needs the
+   port's native library (built from ``native/src`` with ``g++`` into
+   ``build/native/``; the run fails without it) and must give the same
+   triangles where both runs' ball radii are equal; ``scan-360 --stream``
+   (the TSDF combine and its preview STL); ``render`` of the merged cloud
+   (the composite); ``read-calib``; and the photoreal JPEG fixture
+   (``tests/fixtures/realistic_stack``) through ``process-cloud``, held to
+   tests/test_realistic_capture.py's bounds. Every kernel must launch in
+   this phase;
 9. a ``kernels`` JSON line (``matvec_band`` and ``classify_bricks`` also
    carry their numbers on 3d's band and each deep row's launches under
-   ``deep_3d``), the card line again, and last the result line
+   ``deep_3d``; every kernel its launches by tool in the files phase under
+   ``files``), the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -138,6 +161,7 @@ H100_FP32_LANE_OPS = H100_FP32_FLOPS / 2   # instructions/s: an FMA is 2 FLOP
 # an expf for alpha, 10 for the fold (csrc/composite.cu).
 COMPOSITE_FLOPS_PER_PAIR = 25
 N_STOPS, STEP_DEG = 24, 15.0   # the headline ring (bench.py:337-380)
+FRAME_EXT = "png"              # the files phase's frame format
 BRICK_N = 1 << 20              # bench config 3b's cloud (bench.py:1135-1181)
 # What the JAX package's session decides on this ring with the covisibility
 # gate on (scripts/torch_gate_witness.py): the model test skips the last two
@@ -199,25 +223,35 @@ def profile_calls(fn, reps: int, kernels=None) -> tuple[float, dict]:
     kernels one call launches (``None``: every kernel recorded); the
     result is the sum of their mean spans, each times its launches a call.
     ``fn`` runs twice ``reps`` times under the profiler, which can miss
-    launches (it once recorded 185 of 200 on the splat path's records);
-    every launch of one kernel does the same work, so the mean over those
-    recorded stands for all. Also returns every CUDA kernel the profiler
-    recorded over those calls, by name, with its count."""
+    launches (it once recorded 185 of 200 on the splat path's records, and
+    late in a long run 48 of 100); every launch of one kernel does the same
+    work, so the mean over those recorded stands for all, as long as at
+    least ``reps`` were recorded: a window that records fewer of a kernel
+    is profiled again, up to three windows. Also returns every CUDA kernel
+    the profiler recorded over those calls, by name, with its count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2 * reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.setdefault(e.name, []).append(
-                e.time_range.end - e.time_range.start)
+    for window in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        short = [k for k in (spans if kernels is None else kernels)
+                 if sum(len(ts) for name, ts in spans.items()
+                        if k in name) < reps]
+        if not short:
+            break
+        print(f"  profiler: window {window + 1} recorded fewer than {reps} "
+              f"launches of {[k[:60] for k in short]}", flush=True)
     total_us = 0.0
     for kernel in spans if kernels is None else kernels:
         got = [t for name, ts in spans.items() if kernel in name for t in ts]
@@ -2809,6 +2843,395 @@ def splat_path(dev, ring):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 5c: files in, STL out — the port's command-line tools
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "realistic_stack")
+
+
+def tool_counters():
+    """Every kernel's launch counter, by kernel name."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn_kernel,
+        decode,
+        marching_classify,
+        nn,
+        poisson_matvec,
+        splat_composite,
+        tsdf_combine,
+    )
+
+    return {"decode_maps": decode.decode_maps,
+            "nearest_one": nn.nearest_one,
+            "matvec_band": poisson_matvec.matvec_band,
+            "classify_bricks": marching_classify.classify_bricks,
+            "tsdf_combine": tsdf_combine.tsdf_combine,
+            "brick_knn_cells": brickknn_kernel.brick_knn_cells,
+            "composite_cells": splat_composite.composite}
+
+
+def run_tool(dev, label: str, argv: list[str], quiet: bool = False):
+    """``cli.main(argv)`` in this process, with ``--device`` set to ``dev``
+    unless ``argv`` names one (``read-calib`` takes none), every kernel
+    counter zeroed just before and read just after; fails unless it
+    returns 0. Returns (wall seconds, launches by kernel, the tool's
+    standard output)."""
+    import io
+
+    from structured_light_for_3d_model_replication_tpu_torch import cli
+
+    if argv[0] != "read-calib" and "--device" not in argv:
+        argv = [*argv, "--device", str(dev)]
+    counters = tool_counters()
+    _sync(dev)
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out) if quiet else \
+            contextlib.nullcontext():
+        rc = cli.main(argv)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"files: cli {label}: rc {rc}, {wall:.3f} s wall; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if rc != 0:
+        fail(f"cli {label} exited {rc}")
+    return wall, launches, out.getvalue()
+
+
+def write_session(ring, root: str):
+    """The ring's stacks as the reference's auto-scan layout,
+    ``<root>/obj_15deg_AUTO/obj_<angle>deg_scan/01.png …``, written by the
+    port's ``write_frame`` (frames in parallel), and its calibration by
+    ``save_calibration_mat``. Returns (session folder, calibration path)."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import (
+        images,
+        layout,
+        matcal,
+    )
+
+    lay = layout.SessionLayout(root).ensure()
+    stacks = ring["stacks"]
+    jobs = []
+    for k in range(stacks.shape[0]):
+        d = lay.stop_dir("obj", STEP_DEG, k * STEP_DEG)
+        os.makedirs(d)
+        jobs += [(os.path.join(d, layout.frame_name(f + 1, FRAME_EXT)), k, f)
+                 for f in range(stacks.shape[1])]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(lambda j: images.write_frame(j[0], stacks[j[1], j[2]]),
+                    jobs))
+    matcal.save_calibration_mat(lay.calib_mat, ring["calib"])
+    return lay.auto_session_dir("obj", STEP_DEG), lay.calib_mat
+
+
+def fixture_check(dev, tmp: str) -> dict:
+    """The photoreal JPEG fixture through ``cli process-cloud`` (its frames
+    decoded by PIL where OpenCV is absent), its calibration written from
+    ``ground_truth.npz``; the PLY equal to the in-process cloud, and the
+    cloud against the rendered truth held to
+    tests/test_realistic_capture.py's bounds (over half the pixels valid in
+    both, median < 6 mm, p90 < 30 mm)."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import (
+        images,
+        matcal,
+        ply,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        pipeline,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    gt = np.load(os.path.join(FIXTURE, "ground_truth.npz"))
+    mat = os.path.join(tmp, "fixture_calib.mat")
+    matcal.save_calibration_mat(mat, make_calibration(
+        gt["cam_K"], gt["proj_K"], gt["R"], gt["T"], 96, 160,
+        proj_width=256, proj_height=128, device=dev))
+    out = os.path.join(tmp, "fixture.ply")
+    _, launches, _ = run_tool(dev, "process-cloud (JPEG fixture)", [
+        "process-cloud", "-i", FIXTURE, "-c", mat, "-o", out])
+    from PIL import Image
+
+    def pil(path, mode):
+        with Image.open(path) as img:
+            return np.asarray(img.convert(mode))
+
+    stack = images.load_stack(FIXTURE)
+    files = images.list_frames(FIXTURE)
+    pil_grey = np.stack([pil(f, "L") for f in files])
+    pil_rgb = pil(files[0], "RGB")
+    differ = int((pil_grey != stack).sum()) + int(
+        (pil_rgb != images.load_white_rgb(FIXTURE)).sum())
+    res = pipeline.reconstruct(stack, matcal.load_calibration_mat(
+        mat, 96, 160, device=dev), 8, 7, device=dev)
+    valid = res.valid.cpu().numpy().reshape(-1)
+    pts = res.points.cpu().numpy().reshape(-1, 3)
+    cloud = ply.read_ply(out)
+    same = np.array_equal(cloud.points, pts[valid])
+    both = valid & gt["valid"].reshape(-1)
+    err = np.linalg.norm(pts[both] - gt["points"].reshape(-1, 3)[both],
+                         axis=1)
+    med, p90 = float(np.median(err)), float(np.percentile(err, 90))
+    print(f"files: JPEG fixture decoded by "
+          f"{'OpenCV' if images._cv2() is not None else 'PIL'} "
+          f"({differ} pixels differ from PIL's decode, grey and RGB): "
+          f"{len(cloud)} points, the PLY equal to the in-process cloud "
+          f"{same}; valid in both {both.mean():.3f}, error median {med:.3f} "
+          f"mm, p90 {p90:.3f} mm (bounds 0.5, 6, 30)", flush=True)
+    if not same or differ:
+        fail("the fixture's PLY differs from the in-process cloud, or the "
+             "decoders disagree")
+    if both.mean() <= 0.5 or med >= 6.0 or p90 >= 30.0:
+        fail("the JPEG fixture's cloud is outside the lens-model bounds")
+    return launches
+
+
+def surface_check(dev, merged_ply: str, tmp: str) -> dict:
+    """``cli mesh --mode surface --orientation tangent`` of the merged PLY on
+    the card, then with ``--device cpu`` on the same PLY: the native library
+    must be loaded (the run fails otherwise) and ``"tangent"`` must take
+    it; the two runs' triangles must be equal wherever their ball radii are
+    equal bit for bit (else both radii and face counts are printed)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch import _native
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        read_stl,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+
+    built = not _native.library_path().exists()
+    t0 = time.perf_counter()
+    loaded = _native.available()
+    print(f"files: native library {_native.library_path().name} "
+          f"{'built and ' if built else ''}loaded {loaded} in "
+          f"{time.perf_counter() - t0:.3f} s; "
+          f"\"tangent\" takes the {'native' if loaded else 'scipy'} MST",
+          flush=True)
+    if not loaded:
+        fail("the native library did not build or load on this machine")
+    pts = torch.from_numpy(ply.read_ply(merged_ply).points)
+    meshes, radii, launches = {}, {}, {}
+    for where in (dev, torch.device("cpu")):
+        path = os.path.join(tmp, f"surface_{where.type}.stl")
+        _, launches[where.type], _ = run_tool(
+            dev, f"mesh --mode surface --device {where}", [
+                "mesh", "-i", merged_ply, "-o", path, "--mode", "surface",
+                "--orientation", "tangent", "--device", str(where)])
+        meshes[where.type] = read_stl(path)
+        radii[where.type] = meshing.ball_pivot_radii(pts.to(where))
+    card, host = (meshes[dev.type], radii[dev.type]), (meshes["cpu"],
+                                                        radii["cpu"])
+    if not len(card[0].faces):
+        fail("the surface mesh has no faces")
+    same = all(np.array_equal(getattr(card[0], a), getattr(host[0], a))
+               for a in ("vertices", "faces"))
+    print(f"files: surface radii card {card[1]}, host {host[1]} (equal "
+          f"{card[1] == host[1]}); faces card {len(card[0].faces)}, host "
+          f"{len(host[0].faces)}; triangles equal {same}", flush=True)
+    if card[1] == host[1] and not same:
+        fail("the surface mesh differs between the card and the host at "
+             "equal radii")
+    return launches[dev.type]
+
+
+def files_ring(dev):
+    """The headline ring as ``main_path`` renders it, for the files phase
+    alone: (stacks, calibration on ``dev``, projector, scene)."""
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    proj = ProjectorConfig()
+    stacks, rig, _, scene = render_stacks(N_STOPS, STEP_DEG, proj)
+    h, w = stacks.shape[2:]
+    return dict(stacks=stacks, calib=make_calibration(
+        *rig, h, w, proj.width, proj.height, device=dev), proj=proj,
+        scene=scene)
+
+
+def files_path(dev, ring) -> dict:
+    """The file-level flow through the port's command-line tools, in this
+    process (``cli.main``) so the launch counters can be read: the 24-stop
+    ring written as the reference's auto-scan session and read back bit for
+    bit; ``scan-360`` → merged PLY, equal bit for bit to the in-process
+    ``scan_stacks_to_cloud`` on the same stacks with the ``Scan360Params``
+    the tool builds; ``scan-360 --fused``; ``mesh --depth 10`` (> 10⁴
+    faces, ≤ 1 mm median from the spheres); ``process-cloud`` of one stop
+    then ``mesh --remove-background --remove-outliers`` (the brick kernel);
+    ``mesh --mode surface --orientation tangent`` on the card and the host;
+    ``scan-360 --stream`` (the TSDF combine); ``render`` (the composite);
+    ``read-calib``; the JPEG fixture through ``process-cloud``. Returns
+    {kernel: {tool: launches}}."""
+    import tempfile
+
+    from structured_light_for_3d_model_replication_tpu_torch.cli import (
+        scan_360,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.health import (
+        ScanHealthReport,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io import (
+        images,
+        ply,
+        png,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        read_stl,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        scan360,
+    )
+
+    proj, stacks = ring["proj"], ring["stacks"]
+    tally = {}
+
+    def keep(tool, launches):
+        for k, v in launches.items():
+            if v:
+                tally.setdefault(k, {})[tool] = v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sess, mat = write_session(ring, os.path.join(tmp, "session"))
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(sess) for f in fs)
+        t0 = time.perf_counter()
+        stop_dirs = scan_360.stop_folders(sess)
+        same = all(np.array_equal(images.load_stack(d), stacks[k])
+                   for k, d in enumerate(stop_dirs))
+        read_s = time.perf_counter() - t0
+        print(f"files: wrote {stacks.shape[0]} stops x {stacks.shape[1]} "
+              f"{FRAME_EXT.upper()} frames ({size / 2**20:.1f} MiB) in "
+              f"{write_s:.3f} s; read back in {read_s:.3f} s, bit for bit "
+              f"{same}", flush=True)
+        if len(stop_dirs) != stacks.shape[0] or not same:
+            fail("the written session does not read back to the rendered "
+                 "stacks")
+
+        merged_ply = os.path.join(tmp, "merged.ply")
+        argv = ["scan-360", "-i", sess, "-c", mat, "-o", merged_ply,
+                "--method", "sequential", "--voxel-size", "3.0",
+                "--health-json", os.path.join(tmp, "health.json")]
+        _, launches, _ = run_tool(dev, "scan-360", argv)
+        keep("scan-360", launches)
+        for name in ("decode_maps", "nearest_one"):
+            if launches[name] <= 0:
+                fail(f"cli scan-360 never launched {name}")
+        args = scan_360.build_parser().parse_args(argv[1:])
+        t0 = time.perf_counter()
+        ref, _ = scan360.scan_stacks_to_cloud(
+            stacks, ring["calib"], proj.col_bits, proj.row_bits,
+            params=scan_360.batch_params(args, STEP_DEG),
+            health=ScanHealthReport(),
+            stop_labels=scan_360.stop_labels(stop_dirs, STEP_DEG),
+            device=dev)
+        _sync(dev)
+        ref_s = time.perf_counter() - t0
+        merged = ply.read_ply(merged_ply)
+        same = {f: np.array_equal(getattr(merged, f), getattr(ref, f))
+                for f in ("points", "colors", "normals")}
+        print(f"files: merged PLY {len(merged)} points; bit-equal to the "
+              f"in-process scan_stacks_to_cloud ({ref_s:.3f} s) {same}",
+              flush=True)
+        if not all(same.values()) or len(merged) <= 10_000:
+            fail(f"the CLI's merged cloud differs from the in-process one: "
+                 f"{same}, {len(merged)} points")
+
+        _, launches, _ = run_tool(dev, "scan-360 --fused", [
+            "scan-360", "-i", sess, "-c", mat, "-o",
+            os.path.join(tmp, "fused.ply"), "--method", "sequential",
+            "--voxel-size", "3.0", "--fused", "--no-gates", "--stop-chunk",
+            "3"])
+        keep("scan-360 --fused", launches)
+        if launches["nearest_one"] <= 0 or launches["decode_maps"] <= 0:
+            fail("cli scan-360 --fused never launched its kernels")
+
+        model = os.path.join(tmp, "model.stl")
+        _, launches, _ = run_tool(dev, "mesh --depth 10", [
+            "mesh", "-i", merged_ply, "-o", model, "--depth", "10"])
+        keep("mesh", launches)
+        mesh = read_stl(model)
+        dist = surface_distance(mesh.vertices.astype(np.float64),
+                                synthetic_spheres(ring["scene"]))
+        med = float(np.median(dist))
+        print(f"files: depth-10 STL {len(mesh.faces)} faces, median "
+              f"{med:.3f} mm from the spheres", flush=True)
+        if len(mesh.faces) <= 10_000 or med > 1.0:
+            fail(f"cli mesh --depth 10: {len(mesh.faces)} faces, median "
+                 f"{med:.3f} mm")
+        if launches["matvec_band"] < 1 or launches["classify_bricks"] != 1:
+            fail(f"cli mesh --depth 10 launched matvec_band "
+                 f"{launches['matvec_band']} and classify_bricks "
+                 f"{launches['classify_bricks']} times")
+
+        stop_ply = os.path.join(tmp, "stop0.ply")
+        _, launches, _ = run_tool(dev, "process-cloud", [
+            "process-cloud", "-i", stop_dirs[0], "-c", mat, "-o", stop_ply])
+        keep("process-cloud", launches)
+        _, launches, _ = run_tool(
+            dev, "mesh --remove-background --remove-outliers", [
+                "mesh", "-i", stop_ply, "-o", os.path.join(tmp, "clean.stl"),
+                "--remove-background", "--remove-outliers", "--depth",
+                "10"])
+        keep("mesh --remove-outliers", launches)
+        print(f"files: stop 0 cloud {len(ply.read_ply(stop_ply))} points; "
+              f"cleaned mesh {len(read_stl(os.path.join(tmp, 'clean.stl')).faces)}"
+              f" faces", flush=True)
+        if launches["brick_knn_cells"] <= 0:
+            fail("cli mesh --remove-outliers never launched brick_knn_cells")
+
+        keep("mesh --mode surface", surface_check(dev, merged_ply, tmp))
+
+        preview = os.path.join(tmp, "preview.stl")
+        _, launches, _ = run_tool(dev, "scan-360 --stream", [
+            "scan-360", "-i", sess, "-c", mat, "-o",
+            os.path.join(tmp, "streamed.ply"), "--method", "sequential",
+            "--voxel-size", "3.0", "--stream", "--preview-out", preview])
+        keep("scan-360 --stream", launches)
+        # The last preview may be empty: the reference's preview trim
+        # empties the TSDF previews of this ring from stop ~20 on (ROADMAP
+        # Queue 3); the tool prints the first one's faces.
+        print(f"files: last preview STL {len(read_stl(preview).faces)} faces",
+              flush=True)
+        if launches["tsdf_combine"] <= 0:
+            fail("cli scan-360 --stream never launched tsdf_combine")
+
+        view = os.path.join(tmp, "view.png")
+        _, launches, _ = run_tool(dev, "render", [
+            "render", merged_ply, "-o", view])
+        keep("render", launches)
+        img = png.decode_png(open(view, "rb").read())
+        if launches["composite_cells"] <= 0 or img.shape != (288, 384, 3) \
+                or not img.any():
+            fail(f"cli render: {launches['composite_cells']} composites, "
+                 f"image {img.shape}")
+
+        _, _, text = run_tool(dev, "read-calib", ["read-calib", mat],
+                              quiet=True)
+        print("files: read-calib: " + " | ".join(
+            line.strip() for line in text.splitlines()[:2]), flush=True)
+        keep("process-cloud (JPEG fixture)", fixture_check(dev, tmp))
+    print(f"files: kernel launches by tool {tally}", flush=True)
+    missing = [k for k in tool_counters() if k not in tally]
+    if missing:
+        fail(f"the files phase never launched {missing}")
+    return tally
+
+
 def _row_mask(points: np.ndarray, kept: np.ndarray) -> np.ndarray:
     """Rows of ``points`` that survive, by exact coordinates, in ``kept``."""
     view = np.dtype((np.void, 12))
@@ -3673,6 +4096,9 @@ def main() -> int:
                          "3c-3e and the other fine-band schemes) and its "
                          "kernels on config 3d's band only (no result "
                          "line)")
+    ap.add_argument("--files-only", action="store_true",
+                    help="build, render the ring, then the files phase "
+                         "only (the command-line tools; no result line)")
     ap.add_argument("--diagnose-determinism", action="store_true",
                     help="build, then run the 360° and mesh paths once "
                          "under torch.use_deterministic_algorithms(True, "
@@ -3714,6 +4140,9 @@ def main() -> int:
     if args.deep_only:
         deep_kernel_timings(*deep_mesh_path(dev)[:2])
         return 0
+    if args.files_only:
+        files_path(dev, files_ring(dev))
+        return 0
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
                check_nearest_one_batched(dev), check_matvec(dev, band),
@@ -3739,7 +4168,6 @@ def main() -> int:
     on_path["max_abs_err"] = max(on_path["max_abs_err"],
                                  composite["max_abs_err"])
     composite.update(on_path)
-    del ring
     launches["brick_knn_cells"] = cleanup_path(dev)
     small_rig_agreement(dev)
     band, corners, deep = deep_mesh_path(dev)
@@ -3749,10 +4177,15 @@ def main() -> int:
     kernels[6]["deep_3c"]["launches"] = {
         row: n["brick_knn_cells"] for row, n in deep.items()}
     del band, corners
+    # Last, so every profiler window above runs as it did before this phase
+    # was added (the profiler records fewer launches late in a long run).
+    files = files_path(dev, ring)
+    del ring
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["files"] = files.get(k["name"].replace("_batched", ""), {})
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "files")
     print(json.dumps({"kernels": [
         {key: k[key] for key in order + tuple(
             d for d in ("deep_3c", "deep_3d") if d in k)}

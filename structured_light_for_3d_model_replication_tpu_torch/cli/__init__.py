@@ -1,0 +1,73 @@
+"""Command-line tools of the port (counterpart of the JAX ``cli/``): the
+file-level flow — capture folders and a ``.mat`` calibration in, a merged
+PLY and a printable STL out — on the card.
+
+================  ===========================================================
+``process-cloud``  decode + triangulate scan folder(s) → PLY
+                   (`Old/process_cloud.py`, `multi_point_cloud_process.py`)
+``read-calib``     inspect a ``.mat`` calibration (`Old/read_calib.py`)
+``merge-360``      register + merge a folder of PLYs (`server/gui.py:622-641`)
+``scan-360``       stop folders → merged cloud, batch or ``--stream``
+``mesh``           cloud → STL, watertight or surface
+                   (`server/gui.py:643-684`)
+``render``         novel-view PNGs from a splat scene (.npz) or a coloured
+                   cloud
+================  ===========================================================
+
+Every tool that computes takes ``--device`` (default ``cuda``; ``cpu`` runs
+the plain PyTorch path on the host). ``scan``, ``view``, ``serve``,
+``diagnose`` and ``lint`` are not ported yet: they exit with code 2 and name
+the ROADMAP step that brings them.
+
+Invoke via ``python -m structured_light_for_3d_model_replication_tpu_torch.cli
+<tool> [args]``.
+"""
+
+from __future__ import annotations
+
+import sys
+
+_TOOLS = {
+    "diagnose": "diagnose",
+    "lint": "lint",
+    "process-cloud": "process_cloud",
+    "read-calib": "read_calib",
+    "render": "render",
+    "merge-360": "merge_360",
+    "scan-360": "scan_360",
+    "mesh": "mesh",
+    "scan": "scan",
+    "serve": "serve",
+    "view": "view",
+}
+
+# Tools whose modules the port does not have yet, with the ROADMAP Queue 1
+# step that brings them.
+_NOT_PORTED = {
+    "diagnose": "step 4 (serving and devices)",
+    "serve": "step 4 (serving and devices)",
+    "lint": "step 5 (host-only modules)",
+    "scan": "step 5 (host-only modules)",
+    "view": "step 5 (host-only modules)",
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print("tools:", ", ".join(sorted(_TOOLS)))
+        return 0
+    tool = argv[0]
+    if tool not in _TOOLS:
+        print(f"unknown tool {tool!r}; available: {', '.join(sorted(_TOOLS))}",
+              file=sys.stderr)
+        return 2
+    if tool in _NOT_PORTED:
+        print(f"{tool} is not ported yet: it comes with ROADMAP Queue 1 "
+              f"{_NOT_PORTED[tool]}", file=sys.stderr)
+        return 2
+    import importlib
+
+    mod = importlib.import_module(f".{_TOOLS[tool]}", __name__)
+    return mod.main(argv[1:])

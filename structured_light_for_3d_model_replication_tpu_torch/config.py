@@ -1,11 +1,13 @@
 """Configuration dataclasses: a copy of the JAX package's ``config.py``
 parameter sets the 360° path reads (projector geometry, decode masks,
-triangulation)."""
+triangulation) and the dated session root."""
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +63,9 @@ class TriangulationConfig:
     # Reject points behind the camera or absurdly far.
     min_t: float = 0.0
     max_t: float = 1e5
+
+
+def dated_output_root(base: str = ".") -> str:
+    """Reference layout root `{dd_mm_YYYY}_3Dscan` (`server/config.py:10`)."""
+    stamp = datetime.date.today().strftime("%d_%m_%Y")
+    return os.path.join(base, f"{stamp}_3Dscan")

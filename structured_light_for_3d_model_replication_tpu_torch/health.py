@@ -11,6 +11,7 @@ event, the port logs a record with the same event name and fields.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import math
 
@@ -186,6 +187,19 @@ class ScanHealthReport:
                                      for s in self.stops.values())),
             "notes": list(self.notes),
         }
+
+    def to_json(self, indent: int | None = 2) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    def write(self, path: str) -> None:
+        """The report as JSON at ``path`` (a tool's ``--health-json``)."""
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
+        log.info("health report written to %s", path)
+
+    def emit(self) -> None:
+        """One log line carrying the whole report."""
+        log.info("scan health: %s", self.to_json(indent=None))
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,11 @@ reference. Colors are stored as given (RGB in, RGB out).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
+
+from ._fileobj import binary_sink, binary_source
 
 
 @dataclasses.dataclass
@@ -38,24 +39,6 @@ _PLY_TO_NP = {
     "float": "f4", "float32": "f4",
     "double": "f8", "float64": "f8",
 }
-
-
-@contextlib.contextmanager
-def _binary_sink(path_or_file):
-    if hasattr(path_or_file, "write"):
-        yield path_or_file
-    else:
-        with open(path_or_file, "wb") as f:
-            yield f
-
-
-@contextlib.contextmanager
-def _binary_source(path_or_file):
-    if hasattr(path_or_file, "read"):
-        yield path_or_file
-    else:
-        with open(path_or_file, "rb") as f:
-            yield f
 
 
 def _parse_header(f):
@@ -94,7 +77,7 @@ def read_ply(path) -> PointCloud:
     """Read a PLY point cloud (the vertex element; any other element is
     skipped). ``path`` is a filesystem path or an open binary file
     object."""
-    with _binary_source(path) as f:
+    with binary_source(path) as f:
         fmt, elements = _parse_header(f)
         vertex = next((e for e in elements if e[0] == "vertex"), None)
         if vertex is None:
@@ -148,7 +131,7 @@ def write_ply(path, cloud: PointCloud, binary: bool = True) -> None:
         f"element vertex {n}\n" + "\n".join(header_props) + "\nend_header\n"
     )
 
-    with _binary_sink(path) as f:
+    with binary_sink(path) as f:
         f.write(header.encode())
         if binary:
             rec = np.empty(n, dtype=np.dtype(fields))
@@ -206,7 +189,7 @@ def write_ply_mesh(path, mesh, binary: bool = True) -> None:
         f"element face {nf}\n"
         "property list uchar int vertex_indices\nend_header\n"
     )
-    with _binary_sink(path) as f:
+    with binary_sink(path) as f:
         f.write(header.encode())
         if binary:
             rec = np.empty(n, dtype=np.dtype(fields))
@@ -247,7 +230,7 @@ def read_ply_mesh(path):
     when present. Faces must be triangles."""
     from .stl import TriangleMesh
 
-    with _binary_source(path) as f:
+    with binary_source(path) as f:
         fmt, elements = _parse_header(f)
         vertex = next((e for e in elements if e[0] == "vertex"), None)
         face = next((e for e in elements if e[0] == "face"), None)

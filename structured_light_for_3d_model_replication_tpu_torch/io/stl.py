@@ -12,7 +12,7 @@ import dataclasses
 
 import numpy as np
 
-from .ply import _binary_sink
+from ._fileobj import binary_sink
 
 _BIN_DT = np.dtype([
     ("normal", "<f4", (3,)),
@@ -66,7 +66,7 @@ def write_stl(path, mesh: TriangleMesh, binary: bool = True) -> None:
         rec["v0"] = v[f[:, 0]]
         rec["v1"] = v[f[:, 1]]
         rec["v2"] = v[f[:, 2]]
-        with _binary_sink(path) as out:
+        with binary_sink(path) as out:
             out.write(b"\0" * 80)
             out.write(np.uint32(f.shape[0]).tobytes())
             # Buffer-protocol write, not tofile: the sink may be an

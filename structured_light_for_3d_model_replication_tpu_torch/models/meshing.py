@@ -21,9 +21,15 @@ preconditioners), extracted by the device marching extractor on the card
 either solve. Representation ``"tsdf"`` fuses the oriented cloud into a
 brick-pool TSDF (:mod:`..fusion`, kernel ``csrc/combine.cu``) and extracts a
 vertex-coloured mesh. :func:`mesh_from_cloud_async` runs the same call on a
-pipelined worker. Not ported yet, each raising an error that names the
-ROADMAP step that brings it: mode ``"surface"`` (native ball pivoting, step
-3), ``device_mesh`` (step 4).
+pipelined worker.
+
+Mode ``"surface"`` ball-pivots the cloud with radii = mean 1-NN distance ×
+multipliers (`server/processing.py:222-235`) in the native layer the port
+shares with the JAX package (:mod:`.._native`, ``native/src/ball_pivot.cpp``:
+sequential front propagation, a host job); without that library it falls
+back, as the JAX package does, to the Poisson solve with a hard density
+trim. Not ported yet, raising an error that names the ROADMAP step that
+brings it: ``device_mesh`` (step 4).
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ import time
 import numpy as np
 import torch
 
+from .. import _native
 from .._device import not_ported, resolve_device, stage_clock
 from ..io.ply import PointCloud
 from ..io.stl import TriangleMesh, write_stl
 from ..ops import marching, orientation, poisson, poisson_sparse
 from ..ops import pointcloud as pc_ops
+from ..ops.knn import knn
 
 log = logging.getLogger(__name__)
 
@@ -95,6 +103,7 @@ def mesh_from_cloud(
     quantile_trim: float = 0.02,
     orientation_mode: str = "radial",
     camera: np.ndarray | None = None,
+    radii_multipliers: str = "1,2,4",
     cg_iters: int = 300,
     preconditioner: str = "additive",
     extraction: str = "auto",
@@ -112,7 +121,10 @@ def mesh_from_cloud(
 
     ``quantile_trim`` drops the given density quantile of triangles
     (reference default 2%; 0.0 is fully watertight, the ``mesh_360``
-    default). ``depth`` ≤ 8 solves on a 2^depth dense grid; depth 9-16 on
+    default). ``mode="surface"`` ball-pivots with radii of the mean 1-NN
+    distance times each of the comma-separated ``radii_multipliers``; when
+    the native library is absent it meshes as watertight but trims at
+    least 25%. ``depth`` ≤ 8 solves on a 2^depth dense grid; depth 9-16 on
     the band-sparse solver with ``preconditioner`` (``"additive"``,
     ``"vcycle"``, ``"chebyshev"`` or ``"jacobi"``), ``max_blocks`` (None =
     the solver's budget, with its overflow retry) and ``extraction``
@@ -143,9 +155,6 @@ def mesh_from_cloud(
     if representation not in ("poisson", "tsdf"):
         raise ValueError(f"unknown representation {representation!r} "
                          "(expected 'poisson', 'tsdf' or 'archival')")
-    if mode == "surface":
-        raise not_ported("mode='surface' (native ball pivoting)",
-                         "step 3 (the file-level flow)")
     if device_mesh is not None:
         raise not_ported("the device_mesh sharded solve",
                          "step 4 (serving and devices)")
@@ -162,8 +171,9 @@ def mesh_from_cloud(
     t1 = clock()
     if timing is not None:
         timing["normals_s"] = t1 - t0
+    trim = quantile_trim if mode == "watertight" else max(quantile_trim, 0.25)
     if representation == "tsdf":
-        mesh = _tsdf_mesh(cloud, pts, normals, depth, quantile_trim,
+        mesh = _tsdf_mesh(cloud, pts, normals, depth, trim,
                           tsdf_max_bricks, dev)
         if timing is not None:
             timing["extract_s"] = clock() - t1
@@ -171,6 +181,16 @@ def mesh_from_cloud(
                  "colored=%s)", pts.shape[0], len(mesh.vertices),
                  len(mesh.faces), depth, mesh.vertex_colors is not None)
         return mesh
+    if mode == "surface":
+        mesh = _ball_pivot_mesh(pts, pts_t, normals, radii_multipliers)
+        if mesh is not None:
+            if timing is not None:
+                timing["extract_s"] = clock() - t1
+            log.info("ball-pivoted %d points -> %d verts / %d faces",
+                     pts.shape[0], len(mesh.vertices), len(mesh.faces))
+            return mesh
+        log.warning("native ball pivoting unavailable; Poisson surface "
+                    "fallback")
     if int(depth) > 8:
         kw = {} if max_blocks is None else {"max_blocks": int(max_blocks)}
         if isinstance(cg_x0, (poisson.PoissonGrid,
@@ -186,7 +206,7 @@ def mesh_from_cloud(
         log.info("sparse Poisson depth=%d: %d active blocks", int(depth),
                  n_blocks)
         t2 = clock()
-        mesh = marching.extract_sparse(grid, quantile_trim=quantile_trim,
+        mesh = marching.extract_sparse(grid, quantile_trim=trim,
                                        engine=extraction)
     else:
         grid = poisson.reconstruct(pts_t, nrm_t, depth=int(depth),
@@ -194,7 +214,7 @@ def mesh_from_cloud(
         t2 = clock()
         if timing is not None:
             timing["solve_s"] = t2 - t1
-        mesh = marching.extract(grid, quantile_trim=quantile_trim)
+        mesh = marching.extract(grid, quantile_trim=trim)
     t3 = clock()
     if timing is not None:
         timing["extract_s"] = t3 - t2
@@ -246,6 +266,35 @@ def _tsdf_mesh(cloud: PointCloud, pts: np.ndarray, normals: np.ndarray,
                     "raise tsdf_max_bricks or lower depth if the surface "
                     "shows holes", vol.n_dropped, int(max_bricks))
     return vol.extract(quantile_trim=quantile_trim, with_colors=has_colors)
+
+
+def ball_pivot_radii(pts_t: torch.Tensor,
+                     radii_multipliers: str = "1,2,4") -> list[float]:
+    """Mode ``"surface"``'s ball radii: the mean 1-NN distance (the exact
+    KNN on ``pts_t``'s device) times each parsed multiplier, "1,2,4" when
+    the list is empty."""
+    multipliers = [float(x) for x in str(radii_multipliers).split(",") if x]
+    if not multipliers:
+        multipliers = [1.0, 2.0, 4.0]
+    d2, _, nbv = knn(pts_t, 1, exclude_self=True)
+    d = np.sqrt(d2[:, 0].cpu().numpy())
+    nbv = nbv[:, 0].cpu().numpy()
+    avg = float(d[nbv].mean()) if nbv.any() else 1.0
+    return [avg * m for m in multipliers]
+
+
+def _ball_pivot_mesh(pts: np.ndarray, pts_t: torch.Tensor,
+                     normals: np.ndarray,
+                     radii_multipliers: str) -> TriangleMesh | None:
+    """Ball pivoting in the native layer; None when it is unavailable or
+    gives no triangle."""
+    if not _native.available():
+        return None
+    tris = _native.ball_pivot(pts, normals,
+                              ball_pivot_radii(pts_t, radii_multipliers))
+    if len(tris) == 0:
+        return None
+    return TriangleMesh(vertices=pts.copy(), faces=tris)
 
 
 def reconstruct_stl(

@@ -23,7 +23,9 @@ one launch for the whole ring). :func:`scan_stream_to_cloud` decodes
 chunks as the stops arrive and then runs the same :func:`_tail_body`, so
 the two give the same cloud. ``gates`` selects the quality-gated tail
 (:func:`_gated_tail`): stops below the coverage gate are dropped and
-bridged, failing edges repaired.
+bridged, failing edges repaired. :func:`scan_folders_to_cloud` is the
+file-level entry: stop folders and a ``.mat`` calibration in, the merged
+cloud out (and to a PLY).
 """
 
 from __future__ import annotations
@@ -728,3 +730,58 @@ def stop_view_sizes(params: Scan360Params, n_pixels: int):
     m_reg = min(merge_mod._round_up(params.merge.max_points), n_pixels)
     view_cap = merge_mod._round_up(min(params.view_cap, n_pixels))
     return view_cap, m_reg
+
+
+def scan_folders_to_cloud(
+    stop_dirs,
+    calib_path: str,
+    output_path: str | None = None,
+    col_bits: int | None = None,
+    row_bits: int | None = None,
+    params: Scan360Params = Scan360Params(),
+    decode_cfg: DecodeConfig = DecodeConfig(),
+    tri_cfg: TriangulationConfig = TriangulationConfig(),
+    seed: int = 0,
+    health: health_mod.ScanHealthReport | None = None,
+    stop_labels=None,
+    device=None,
+):
+    """File-level wrapper: per-stop frame folders and a ``.mat``
+    calibration → (merged cloud, poses), the cloud also written to
+    ``output_path`` when given; on ``device`` (None means the card).
+
+    The reference's batch flow (`multi_point_cloud_process.py`, then the
+    merge tab) without its file round trips in between. The bit counts
+    follow the projector extent, ``ceil(log2(dim))``, as the reference sizes
+    its Gray sequences (`server/sl_system.py:52-54`), and the stacks must
+    hold ``2 + 2·(col_bits + row_bits)`` frames. With ``params.fused`` the
+    stacks are staged on the device in one copy (the one-readback form
+    needs them there); otherwise the host stacks go to
+    :func:`scan_stacks_to_cloud`, which stages them a chunk at a time."""
+    import math
+
+    from ..io import images as img_io
+    from ..io import matcal
+
+    dev = resolve_device(device)
+    stacks = np.stack([img_io.load_stack(d) for d in stop_dirs])
+    _, _, h, w = stacks.shape
+    cal = matcal.load_calibration_mat(calib_path, h, w, device=dev)
+    if col_bits is None:
+        col_bits = math.ceil(math.log2(cal.plane_cols.shape[0]))
+    if row_bits is None:
+        row_bits = math.ceil(math.log2(cal.plane_rows.shape[0]))
+    expect = 2 + 2 * (col_bits + row_bits)
+    if stacks.shape[1] != expect:
+        raise ValueError(
+            f"stack has {stacks.shape[1]} frames but {col_bits}+{row_bits} "
+            f"bits imply {expect} (white, black, then pattern/inverse pairs)")
+    if params.fused:
+        stacks = torch.from_numpy(stacks).to(dev)
+    merged, poses = scan_stacks_to_cloud(
+        stacks, cal, col_bits, row_bits, params=params,
+        decode_cfg=decode_cfg, tri_cfg=tri_cfg, seed=seed, device=dev,
+        health=health, stop_labels=stop_labels)
+    if output_path is not None:
+        ply_io.write_ply(output_path, merged)
+    return merged, poses

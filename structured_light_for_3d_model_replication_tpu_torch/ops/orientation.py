@@ -1,14 +1,15 @@
 """Globally consistent normal orientation by tangent-plane MST propagation
-(counterpart of the JAX ``ops/orientation.py``, its scipy path).
+(counterpart of the JAX ``ops/orientation.py``).
 
 Replaces Open3D's ``orient_normals_consistent_tangent_plane``
 (`server/processing.py:201,282`) with Hoppe's algorithm: a Riemannian graph
 over the k nearest neighbours (the port's exact :func:`.knn.knn`, on the
 device), edges weighted by how parallel the endpoint normals are, a minimum
-spanning tree, and a sign flip propagated along it (scipy, on the host).
-The JAX package takes its native C++ MST when that library is built; the
-port keeps the scipy path, which orients each component from its point
-furthest from the centroid.
+spanning tree, and a sign flip propagated along it, on the host. As in the
+JAX package, two engines: when the port's native library loads
+(:mod:`.._native`), its Prim MST over the symmetrised graph, then a majority
+radial vote per component picks the outward sign; otherwise scipy's MST,
+each component rooted at its point furthest from the centroid.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import breadth_first_order, connected_components, \
     minimum_spanning_tree
 
+from .. import _native
 from .._device import resolve_device
 from .knn import knn
 
@@ -34,9 +36,10 @@ def orient_normals_consistent_tangent_plane(
 
     ``k`` mirrors the reference's
     ``orient_normals_consistent_tangent_plane(100)``. Each connected
-    component is rooted at its point furthest from the cloud centroid,
-    whose normal is seeded to point away from (``outward=True``) the
-    centroid. The KNN graph is built on ``device``."""
+    component ends pointing away from (``outward=True``) the cloud
+    centroid: by the majority of its points' radial votes on the native
+    engine, by its root's (its point furthest from the centroid) on the
+    scipy one. The KNN graph is built on ``device``."""
     pts = np.asarray(points, np.float32)
     nrm = np.asarray(normals, np.float32).copy()
     n = pts.shape[0]
@@ -46,6 +49,20 @@ def orient_normals_consistent_tangent_plane(
     dev = resolve_device(device)
     _, idx, nbv = knn(torch.from_numpy(pts).to(dev), k_eff)
     idx, nbv = idx.cpu().numpy(), nbv.cpu().numpy()
+
+    if _native.available():
+        # Prim over the symmetrised graph, so its reachability is the
+        # union-find components' that the vote runs over.
+        out, _ = _native.mst_orient_normals(pts, nrm, idx, nbv,
+                                            seed_dir=(0.0, 0.0, 0.0))
+        labels, ncomp = _native.connected_components(idx, nbv)
+        vote = np.einsum("ij,ij->i", out, pts - pts.mean(axis=0))
+        for comp in range(ncomp):
+            m = labels == comp
+            total = float(vote[m].sum())
+            if (total < 0) == outward and total != 0.0:
+                out[m] = -out[m]
+        return out
 
     rows = np.repeat(np.arange(n), k_eff)
     cols = idx.reshape(-1)

@@ -62,7 +62,10 @@ def test_every_port_module_imports_without_jax():
                  "ops.segmentation", "ops.cluster", "ops.features_brick",
                  "io.layout", "io.png", "ops.splat_render",
                  "ops.splat_composite", "splat", "splat.model", "splat.fit",
-                 "splat.preview"):
+                 "splat.preview", "_native", "io._fileobj", "io.images",
+                 "io.matcal", "models.realism", "cli", "cli.__main__",
+                 "cli.process_cloud", "cli.read_calib", "cli.merge_360",
+                 "cli.scan_360", "cli.mesh", "cli.render"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -79,9 +82,16 @@ def test_entry_modules_do_not_load_kernel_bindings():
         from {PORT}.ops import splat_composite, splat_render
         from {PORT}.splat import fit, model, preview
         from {PORT}.stream import session
+        from {PORT} import _native, cli
+        from {PORT}.cli import (merge_360, mesh, process_cloud, read_calib,
+                                render, scan_360)
+        from {PORT}.io import _fileobj, images, matcal
+        from {PORT}.models import realism
         loaded = [m for m in sys.modules if m.startswith("{PORT}.kernels")
                   or m == "triton"]
         assert not loaded, loaded
+        # Importing the native bindings builds nothing.
+        assert _native._lib is None and not _native._tried
     """)
 
 

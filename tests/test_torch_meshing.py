@@ -10,8 +10,8 @@ Tolerances:
   dot products and flips); estimated normals the same sign everywhere,
   ≥ 99% of them to 1e-4 and all to 1 − |n·n'| ≤ 1e-3 — the exact KNN's
   float32 sums can flip a near-tie neighbour; tangent (Hoppe MST, the
-  scipy path on both sides) the same sign on ≥ 99.9% of points, for the
-  same reason;
+  scipy path on both sides, native libraries off) the same sign on ≥ 99.9%
+  of points, for the same reason;
 * ``mesh_360`` at depth 9 on two spheres far apart (a band of ~3100
   blocks): face counts within 1%, the median symmetric vertex-to-vertex
   distance ≤ 0.1 voxel, and the STL read back to the same triangles — the
@@ -39,6 +39,7 @@ from structured_light_for_3d_model_replication_tpu.models import (
 from structured_light_for_3d_model_replication_tpu.ops import (
     pointcloud as jpc,
 )
+from structured_light_for_3d_model_replication_tpu_torch import _native
 from structured_light_for_3d_model_replication_tpu_torch.io import ply, stl
 from structured_light_for_3d_model_replication_tpu_torch.models import (
     meshing,
@@ -147,9 +148,11 @@ def test_estimated_normals_match_jax():
 
 
 def test_tangent_orientation_matches_jax(monkeypatch):
-    """Hoppe MST on both sides: the JAX package's scipy path (its native
-    C++ MST switched off) against the port's."""
+    """Hoppe MST on both sides: the JAX package's scipy path against the
+    port's (both native libraries switched off; the default, native, path
+    is held in tests/test_torch_native.py)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(_native, "available", lambda: False)
     pts, nrm = _spheres(3000, 5, noise=0.05)
     flipped = np.where((np.arange(3000) % 4 == 0)[:, None], -nrm, nrm)
     ref = np.asarray(jmeshing.ensure_oriented_normals(
@@ -225,8 +228,8 @@ def test_dense_depth_meshes_on_the_dense_solve():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(mode="surface"), "mode='surface'"),
-    (dict(mode="surface", representation="tsdf"), "mode='surface'"),
+    (dict(device_mesh=object(), mode="surface"), "device_mesh"),
+    (dict(device_mesh=object(), representation="tsdf"), "device_mesh"),
     (dict(device_mesh=object()), "device_mesh"),
 ])
 def test_left_out_modes_name_their_step(kw, what):
