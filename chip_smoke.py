@@ -2,13 +2,15 @@
 """On-card smoke run of the PyTorch port on one NVIDIA GPU:
 ``structured_light_for_3d_model_replication_tpu_torch``, from stacks to the
 merged 360° cloud and on to the printable STL, through the streaming
-session and its splat appearance tier (rendered novel views), and through
-the cleanup path of a single capture, with its CUDA kernels.
+session and its splat appearance tier (rendered novel views), through
+the cleanup path of a single capture, the command-line tools, the
+calibration and one serving replica, with its CUDA kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
     python3 chip_smoke.py --profile        # full run + profiled 360° paths
     python3 chip_smoke.py --files-only     # build + the files phase only
+    python3 chip_smoke.py --serve-only     # build + the serve phase only
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -127,10 +129,28 @@ Phases, in order; any failure exits non-zero before the result line:
    (``tests/fixtures/realistic_stack``) through ``process-cloud``, held to
    tests/test_realistic_capture.py's bounds. Every kernel must launch in
    this phase;
+8c. calibration at the ring's rig: six checkerboard poses at 1080p
+   (rendered at 2× supersampling) written as the reference's calibration
+   session; the corner decode through ``decode_maps`` (one launch a pose,
+   its maps equal to the plain version's); with OpenCV ``calibrate_final``
+   into a temporary ``.mat`` read back, then ``refine_stereo_torch`` (30
+   LM steps on the card), held to tests/test_calibration.py's bounds —
+   without OpenCV the LM starts from the rendered corners and a perturbed
+   rig;
+8d. one serving replica (``--serve-only``: build, the ring's first 4
+   stops, this phase): bench config 7 as written (``bench.py:1378-1505``,
+   HTTP loopback, concurrency 1/4/16, every PLY bit-equal to the
+   in-process ``reconstruct``, 3 misses, occupancy ≥ 2 at c = 16,
+   ``decode_maps`` once a batch), then bench config 9 (``bench.py:
+   2010-2301``) with a 60 s soak against the bench's 180 s and all its
+   assertions, and through its recovered service a 4-stop ``"tsdf"``
+   session over HTTP whose STL must equal the in-process session's bit
+   for bit and a splat-lane session's rendered PNG;
 9. a ``kernels`` JSON line (``matvec_band`` and ``classify_bricks`` also
    carry their numbers on 3d's band and each deep row's launches under
    ``deep_3d``; every kernel its launches by tool in the files phase under
-   ``files``), the card line again, and last the result line
+   ``files``, in the calibration phase under ``calibration`` and in the
+   serve phase under ``serve``), the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -3044,9 +3064,10 @@ def surface_check(dev, merged_ply: str, tmp: str) -> dict:
     return launches[dev.type]
 
 
-def files_ring(dev):
-    """The headline ring as ``main_path`` renders it, for the files phase
-    alone: (stacks, calibration on ``dev``, projector, scene)."""
+def files_ring(dev, n_stops: int = N_STOPS):
+    """The headline ring as ``main_path`` renders it (its first
+    ``n_stops``), for the files or serve phase alone: (stacks, calibration
+    on ``dev``, projector, scene)."""
     from structured_light_for_3d_model_replication_tpu_torch.config import (
         ProjectorConfig,
     )
@@ -3055,7 +3076,7 @@ def files_ring(dev):
     )
 
     proj = ProjectorConfig()
-    stacks, rig, _, scene = render_stacks(N_STOPS, STEP_DEG, proj)
+    stacks, rig, _, scene = render_stacks(n_stops, STEP_DEG, proj)
     h, w = stacks.shape[2:]
     return dict(stacks=stacks, calib=make_calibration(
         *rig, h, w, proj.width, proj.height, device=dev), proj=proj,
@@ -4082,6 +4103,729 @@ def deep_kernel_timings(band, corners) -> tuple[dict, dict]:
             {k: cl.get(k) for k in keys} | {"max_abs_err": 0.0})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: calibration at the ring's rig
+# ---------------------------------------------------------------------------
+
+CALIB_POSES = 6
+# Each pose rendered at 2× supersampling (the JAX package's renderer
+# defaults to 3×): at 1080p the 3× render takes ~40 s a pose on the host,
+# 2× ~17 s, and 2× already averages the checker edges cornerSubPix reads.
+CALIB_SUPERSAMPLE = 2
+
+
+def rig_angle_deg(Ra, Rb) -> float:
+    """Angle of Raᵀ·Rb in degrees, from its rotation vector (well
+    conditioned near 0, where the trace formula loses to float32)."""
+    from scipy.spatial.transform import Rotation
+
+    rel = np.asarray(Ra, np.float64).T @ np.asarray(Rb, np.float64)
+    u, _, vt = np.linalg.svd(rel)
+    return float(np.degrees(np.linalg.norm(
+        Rotation.from_matrix(u @ vt).as_rotvec())))
+
+
+def render_calibration_session(root: str, proj, rig):
+    """The ring's rig looking at ``CALIB_POSES`` checkerboard poses,
+    rendered on the host (poses in parallel) and written as the
+    reference's calibration session (``calib/pose_<i>/01.png …``).
+    Returns (layout, [(stack, ground truth)], board poses)."""
+    from structured_light_for_3d_model_replication_tpu_torch.io import (
+        images,
+        layout,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    h, w = proj.height, proj.width
+    frames = synthetic.pattern_frames(proj)
+    poses = synthetic.calibration_pose_set(CALIB_POSES)
+    lay = layout.SessionLayout(root).ensure()
+
+    def render(i):
+        return synthetic.render_calibration_pose(
+            *poses[i], *rig, h, w, proj, pattern_frames=frames,
+            supersample=CALIB_SUPERSAMPLE)
+
+    with ThreadPoolExecutor(max_workers=CALIB_POSES) as ex:
+        rendered = list(ex.map(render, range(CALIB_POSES)))
+    jobs = []
+    for i, (stack, _) in enumerate(rendered):
+        os.makedirs(lay.pose_dir(i), exist_ok=True)
+        jobs += [(os.path.join(lay.pose_dir(i), layout.frame_name(f + 1)),
+                  stack[f]) for f in range(stack.shape[0])]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(lambda j: images.write_frame(*j), jobs))
+    return lay, rendered, poses
+
+
+def calibration_path(dev, proj=None) -> dict:
+    """Calibration at the ring's rig (1920×1080 projector, 1080p camera):
+    six checkerboard poses rendered and written as the reference's session;
+    the corner decode (the ``decode_maps`` kernel, once a pose) checked
+    against the plain maps; with OpenCV, ``calibrate_final`` into a
+    temporary ``.mat`` read back, then ``refine_stereo_torch`` on the card,
+    both held to tests/test_calibration.py's bounds (f within 2% / 5%, R
+    within 3°, ‖T − T_gt‖ < 0.12‖T‖, rms < 1.5 px, the refined rms ≤ the
+    unrefined solution's + 1e-3). Without OpenCV the LM starts from the
+    rendered corners and a perturbed rig (the same device and kernel path).
+    ``proj`` (default 1920×1080, the camera at its resolution) sizes the
+    rig. Returns the launch counts."""
+    import tempfile
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch import (
+        calibration,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        CheckerboardConfig,
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io import (
+        matcal,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        decode,
+    )
+
+    try:
+        import cv2
+        cv_line = f"OpenCV {cv2.__version__} found"
+    except ImportError:
+        cv2 = None
+        cv_line = ("OpenCV absent: the LM starts from the rendered corners "
+                   "and a perturbed rig")
+    print(f"calibration: {cv_line}", flush=True)
+    proj = proj or ProjectorConfig()
+    h, w = proj.height, proj.width
+    board = CheckerboardConfig()
+    cam_K, proj_K, R_gt, T_gt = rig = synthetic.default_calibration(h, w,
+                                                                    proj)
+    counters = tool_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        lay, rendered, poses = render_calibration_session(tmp, proj, rig)
+        print(f"calibration: {CALIB_POSES} poses rendered and written at "
+              f"{h}x{w} in {time.perf_counter() - t0:.1f} s (untimed "
+              "set-up)", flush=True)
+        # The corner decode's maps against the plain version, every pose.
+        for i, (stack, _) in enumerate(rendered):
+            x = torch.from_numpy(stack)[None].to(dev)
+            got = decode.decode_maps(x, proj.col_bits, proj.row_bits)
+            ref = decode.decode_maps_reference(x, proj.col_bits,
+                                               proj.row_bits)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                fail(f"calibration: pose {i}'s decode maps differ from the "
+                     "plain version")
+        print("calibration: decode_maps equal to the plain version on all "
+              f"{CALIB_POSES} poses", flush=True)
+        _sync(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        if cv2 is not None:
+            mat = os.path.join(tmp, "calib.mat")
+            calib, stereo = calibration.calibrate_final(
+                lay.pose_dirs(), output_mat=mat, proj=proj, board=board,
+                device=dev)
+            _sync(dev)
+            final_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            back = matcal.load_calibration_mat(mat, h, w, device=dev)
+            if not torch.equal(back.plane_cols, calib.plane_cols):
+                fail("calibration: the .mat does not read back")
+            data = calibration.load_calib_data(lay.pose_dirs(), proj, board,
+                                               device=dev)
+            f_cam = abs(stereo.cam_K[0, 0] - cam_K[0, 0]) / cam_K[0, 0]
+            f_prj = abs(stereo.proj_K[0, 0] - proj_K[0, 0]) / proj_K[0, 0]
+            checks = {"f_cam": bool(f_cam < 0.02),
+                      "f_proj": bool(f_prj < 0.05)}
+            opencv = stereo
+            init = None
+        else:
+            data = calibration.CalibData([], [], [], (w, h), [])
+            for i, (stack, gt) in enumerate(rendered):
+                cam = gt["corner_cam_px"].astype(np.float32)[:, None]
+                uv = calibration.decode_at_corners(stack, cam, proj,
+                                                   device=dev)
+                data.obj_pts.append(board_points(board))
+                data.cam_pts.append(cam)
+                data.proj_pts.append(uv[:, None])
+                data.poses.append(f"pose_{i}")
+            _sync(dev)
+            final_s = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            opencv = calibration.StereoResult(
+                cam_K, None, proj_K, None, perturbed(R_gt, 1.0),
+                T_gt + np.array([3.0, -2.0, 2.0]), float("nan"))
+            init = gt_start(poses, opencv)
+            checks = {"f_cam": True, "f_proj": True}
+            f_cam = f_prj = 0.0
+        t0 = time.perf_counter()
+        refined = calibration.refine_stereo_torch(data, opencv, device=dev,
+                                                  init=init)
+        _sync(dev)
+        refine_s = time.perf_counter() - t0
+        # Again, warm (the first call pays the solver's and jacfwd's first
+        # use): the same bits, and the refinement's own time.
+        t0 = time.perf_counter()
+        again = calibration.refine_stereo_torch(data, opencv, device=dev,
+                                                init=init)
+        _sync(dev)
+        warm_s = time.perf_counter() - t0
+        checks["repeat"] = bool(np.array_equal(again.R, refined.R)
+                                and again.rms == refined.rms)
+        start = calibration.refine_stereo_torch(data, opencv, 0, device=dev,
+                                                init=init)
+        # Without OpenCV the first row is the perturbed start, printed
+        # and not held to the bounds.
+        first = "opencv" if cv2 is not None else "start"
+        for name, res, rms in ((first, opencv, opencv.rms if cv2 is not None
+                                else start.rms),
+                               ("refined", refined, refined.rms)):
+            ang = rig_angle_deg(res.R, R_gt)
+            dT = float(np.linalg.norm(np.asarray(res.T) - T_gt))
+            if name != "start":
+                checks[f"R_{name}"] = ang < 3.0
+                checks[f"T_{name}"] = bool(dT < 0.12
+                                           * np.linalg.norm(T_gt))
+                checks[f"rms_{name}"] = rms < 1.5
+            print(f"calibration: {name}: R {ang:.4f} deg from the rig, "
+                  f"|T - T_gt| {dT:.3f} mm (|T| {np.linalg.norm(T_gt):.1f}),"
+                  f" rms {rms:.4f} px", flush=True)
+        checks["refined_rms"] = refined.rms <= start.rms + 1e-3
+        print(f"calibration: f_cam off {f_cam:.5f}, f_proj off {f_prj:.5f};"
+              f" {len(data.poses)} poses; calibrate/decode {final_s:.3f} s, "
+              f"refine (30 LM steps on the card) {refine_s:.3f} s first, "
+              f"{warm_s:.3f} s warm; refined "
+              f"rms {refined.rms:.4f} against the unrefined solution's "
+              f"{start.rms:.4f} in the same model; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; "
+              f"checks {checks}", flush=True)
+        if not all(checks.values()):
+            fail(f"calibration: {checks}")
+        if launches["decode_maps"] != len(data.poses):
+            fail(f"calibration: decode_maps launched "
+                 f"{launches['decode_maps']} times for "
+                 f"{len(data.poses)} poses")
+    return launches
+
+
+def board_points(board) -> np.ndarray:
+    """The rendered board's inner corners in board coordinates, in the
+    renderer's order (the columns' index outer)."""
+    ii, jj = np.meshgrid(np.arange(board.cols), np.arange(board.rows),
+                         indexing="ij")
+    return np.stack([ii.ravel() * board.square_mm,
+                     jj.ravel() * board.square_mm,
+                     np.zeros(ii.size)], axis=-1).astype(np.float32)
+
+
+def perturbed(R: np.ndarray, deg: float) -> np.ndarray:
+    """``R`` turned by ``deg`` degrees about a fixed oblique axis."""
+    from scipy.spatial.transform import Rotation
+
+    axis = np.array([1.0, 2.0, -1.0]) / np.sqrt(6.0)
+    return Rotation.from_rotvec(np.radians(deg) * axis).as_matrix() @ R
+
+
+def gt_start(poses, stereo) -> np.ndarray:
+    """An LM start without OpenCV: the stereo (ω, t) of ``stereo`` and each
+    board pose's (ω, t) turned by 0.5° and moved 2 mm."""
+    from scipy.spatial.transform import Rotation
+
+    x = [Rotation.from_matrix(stereo.R).as_rotvec(), np.asarray(stereo.T)]
+    for bR, bt in poses:
+        x += [Rotation.from_matrix(perturbed(bR, 0.5)).as_rotvec(),
+              np.asarray(bt) + 2.0]
+    return np.concatenate(x).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: one serving replica — bench configs 7 and 9, a session
+# ---------------------------------------------------------------------------
+
+#: Bench config 9's soak length here; the bench's default is 180 s
+#: (``SL_BENCH_SOAK_S``), cut to keep the whole script inside its limit.
+SOAK_S = 60.0
+
+
+def windowed(stack: np.ndarray) -> np.ndarray:
+    """Bench configs 7 and 9's capture: the stack's content inside a
+    256×384 window, black elsewhere (``bench.py:1390-1394``)."""
+    win = np.zeros_like(stack)
+    win[:, 400:656, 700:1084] = stack[:, 400:656, 700:1084]
+    return win
+
+
+def ply_bytes(cloud) -> bytes:
+    import io
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        write_ply,
+    )
+
+    buf = io.BytesIO()
+    write_ply(buf, cloud)
+    return buf.getvalue()
+
+
+def serve_config7(dev, ring) -> dict:
+    """Bench config 7 as written (``bench.py:1378-1505``): the windowed stop
+    0 in 4 variants over HTTP loopback (``.npy`` bodies, the port's
+    ``ServeClient(retries=0)``), concurrency 1/4/16 with 8/16/32 jobs.
+    Every PLY read back must equal the port's in-process ``reconstruct`` of
+    its stack on the card bit for bit; misses 3; occupancy ≥ 2 at c = 16;
+    ``decode_maps`` launched exactly once a batch."""
+    import threading
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        pipeline,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ReconstructionService,
+        ServeConfig,
+        ServeHTTPServer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.client import (
+        BackpressureError,
+        ServeClient,
+    )
+
+    proj = ring["proj"]
+    h, w = ring["stacks"].shape[2:]
+    win = windowed(ring["stacks"][0])
+    variants = [win + np.uint8(1 + 3 * i) for i in range(4)]
+    cfg = ServeConfig(device=str(dev), proj=proj, buckets=((h, w),),
+                      batch_sizes=(1, 4, 8), linger_ms=10.0, queue_depth=32,
+                      workers=1, content_cache=False)
+    svc = ReconstructionService(cfg)
+    t0 = time.perf_counter()
+    svc.start()
+    warm_s = time.perf_counter() - t0
+    calib = svc.calib_provider(h, w)
+    refs = [ply_bytes(pipeline.to_point_cloud(pipeline.reconstruct(
+        v, calib, proj.col_bits, proj.row_bits, device=dev)))
+        for v in variants]
+    http = ServeHTTPServer(svc, port=0).start()
+    client = ServeClient(f"http://127.0.0.1:{http.port}", timeout_s=120.0,
+                         retries=0)
+    counters = tool_counters()
+    _sync(dev)
+    for c in counters.values():
+        c.launches = 0
+
+    def run_level(concurrency, n_jobs):
+        occ_before = svc.registry.histogram(
+            "serve_batch_occupancy").snapshot()
+        latencies, errors, unequal, parts = [], [], [], []
+        lock = threading.Lock()
+
+        def client_loop(k):
+            for j in range(n_jobs // concurrency):
+                v = (k + j) % len(variants)
+                try:
+                    t_sub = time.perf_counter()
+                    while True:
+                        try:
+                            jid = client.submit(variants[v])
+                            break
+                        except BackpressureError as e:
+                            time.sleep(min(e.retry_after_s or 0.1, 0.5))
+                    t_wait = time.perf_counter()
+                    st = client.wait(jid, timeout_s=300.0, poll_s=0.01)
+                    if st["status"] != "done":
+                        errors.append(st.get("error"))
+                        continue
+                    t_res = time.perf_counter()
+                    data = client.result(jid)
+                except Exception as e:
+                    errors.append(f"{type(e).__name__}: {e}")
+                    continue
+                t_end = time.perf_counter()
+                with lock:
+                    latencies.append(t_end - t_sub)
+                    # Where a job's client latency went: the submit, the
+                    # status polls, the result fetch, and the service's
+                    # own queue-wait and run seconds.
+                    parts.append((t_end - t_sub, t_wait - t_sub,
+                                  t_res - t_wait, t_end - t_res,
+                                  st.get("queue_wait_s"), st.get("run_s")))
+                    if data != refs[v]:
+                        unequal.append(jid)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client_loop, args=(k,))
+                   for k in range(concurrency)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600.0)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            fail(f"config 7: a client thread at c={concurrency} hung")
+        occ_after = svc.registry.histogram(
+            "serve_batch_occupancy").snapshot()
+        d_count = occ_after["count"] - occ_before["count"]
+        d_sum = occ_after["sum"] - occ_before["sum"]
+        if errors:
+            fail(f"config 7: {len(errors)} jobs failed at c={concurrency}: "
+                 f"{errors[0]}")
+        if unequal:
+            fail(f"config 7: {len(unequal)} PLYs at c={concurrency} differ "
+                 "from the in-process reconstruct of their stack")
+        lat = sorted(latencies)
+        slowest = max(parts)
+        return {"jobs": n_jobs, "scans_per_s": n_jobs / wall,
+                "slowest_job_s": dict(zip(
+                    ("total", "submit", "wait", "result",
+                     "service_queue_wait", "service_run"), slowest)),
+                "p50_latency_s": lat[len(lat) // 2],
+                "p95_latency_s": lat[min(len(lat) - 1,
+                                         int(0.95 * len(lat)))],
+                "max_latency_s": lat[-1],
+                "mean_batch_occupancy": d_sum / max(1, d_count),
+                "batches": d_count, "wall_s": wall}
+
+    levels = {}
+    try:
+        for conc, n_jobs in ((1, 8), (4, 16), (16, 32)):
+            levels[conc] = run_level(conc, n_jobs)
+            print(f"config 7: c={conc}: {levels[conc]}", flush=True)
+        _sync(dev)
+        launches = {k: c.launches for k, c in counters.items()}
+        cache = svc.cache.stats()
+    finally:
+        http.stop()
+        drained = svc.drain(timeout=120.0)
+    batches = sum(lv["batches"] for lv in levels.values())
+    print(f"config 7: warmup_s {warm_s:.3f} (3 programs, the session lane);"
+          f" cache {cache}; {batches} batches, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; PLYs bit-equal "
+          "to the in-process reconstruct: True", flush=True)
+    if not drained:
+        fail("config 7: the drain timed out")
+    if cache["misses"] != 3:
+        fail(f"config 7: {cache['misses']} program-cache misses, not 3")
+    if levels[16]["mean_batch_occupancy"] < 2.0:
+        fail(f"config 7: occupancy {levels[16]['mean_batch_occupancy']} "
+             "at c=16, below 2.0")
+    if launches["decode_maps"] != batches:
+        fail(f"config 7: decode_maps launched {launches['decode_maps']} "
+             f"times for {batches} batches")
+    return {"warmup_s": warm_s, "levels": levels, "launches": launches,
+            "batches": batches}
+
+
+def rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return 0.0
+
+
+def serve_config9(dev, ring, session_fn) -> dict:
+    """Bench config 9 as written (``bench.py:2010-2301``) but for the soak's
+    length (``SOAK_S``): a journal under a temporary directory,
+    ``CallSchedule.seeded(9, rates={"black": 0.05})`` chaos, 2 load threads
+    with every tenth submit a duplicate, ``abort()`` with a stranded burst
+    of 4, then ``start(recover_from=True)``; all of its assertions. Before
+    the drain, ``session_fn(service)`` drives the streaming session."""
+    import tempfile
+    import threading
+
+    from structured_light_for_3d_model_replication_tpu_torch.hw.faults import (
+        CallSchedule,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        JobRejected,
+        ReconstructionService,
+        ServeConfig,
+        read_live_state,
+    )
+
+    proj = ring["proj"]
+    h, w = ring["stacks"].shape[2:]
+    win = windowed(ring["stacks"][0])
+
+    def tagged(kind: int, n: int) -> np.ndarray:
+        v = win.copy()
+        v[0, 0, 0] = kind
+        for b in range(4):
+            v[0, 0, 1 + b] = (n >> (8 * b)) & 0xFF
+        return v
+
+    dup_variants = [tagged(2, d) for d in range(4)]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="sl-soak-") as store_dir:
+        def mk_cfg():
+            return ServeConfig(device=str(dev), proj=proj,
+                               buckets=((h, w),), batch_sizes=(1, 4, 8),
+                               linger_ms=10.0, queue_depth=32, workers=1,
+                               store_dir=store_dir)
+
+        def device_in_use(svc):
+            vals = [s.get("bytes_in_use")
+                    for s in svc.telemetry.sample_memory().values()
+                    if s.get("bytes_in_use") is not None]
+            return max(vals) if vals else None
+
+        chaos = CallSchedule.seeded(9, n_calls=1 << 16,
+                                    rates={"black": 0.05})
+        counters = {"done": 0, "computed": 0, "hits": 0, "failed": 0,
+                    "rejected": 0, "dup_submitted": 0}
+        errors: list[str] = []
+        stop_flag = threading.Event()
+        lock = threading.Lock()
+        n_threads = 2
+
+        def load_loop(svc, k):
+            j = 0
+            while not stop_flag.is_set():
+                i = k + n_threads * j
+                j += 1
+                kind = chaos.next()
+                dup = i % 10 == 0
+                if kind == "black":
+                    stack_v = np.zeros_like(win)
+                elif dup:
+                    stack_v = dup_variants[(i // 10) % len(dup_variants)]
+                else:
+                    stack_v = tagged(1, i % 180)
+                try:
+                    job = svc.submit_array(stack_v)
+                except JobRejected as e:
+                    with lock:
+                        counters["rejected"] += 1
+                    time.sleep(min(getattr(e, "retry_after_s", None)
+                                   or 0.1, 0.5))
+                    continue
+                if dup and kind != "black":
+                    with lock:
+                        counters["dup_submitted"] += 1
+                if not job.wait(600.0):
+                    errors.append(f"job {job.job_id} stuck")
+                    return
+                with lock:
+                    if job.status == "done":
+                        counters["done"] += 1
+                        if job.result_meta.get("content_cache_hit"):
+                            counters["hits"] += 1
+                        else:
+                            counters["computed"] += 1
+                    else:
+                        counters["failed"] += 1
+                        tax = (job.error or {}).get("taxonomy", [])
+                        if "StopQualityError" not in tax:
+                            errors.append(f"uncontained: {job.error}")
+                            return
+
+        def run_phase(svc, seconds):
+            stop_flag.clear()
+            threads = [threading.Thread(target=load_loop, args=(svc, k))
+                       for k in range(n_threads)]
+            for t in threads:
+                t.start()
+            time.sleep(seconds)
+            stop_flag.set()
+            for t in threads:
+                t.join(timeout=600.0)
+            if any(t.is_alive() for t in threads) or errors:
+                fail(f"config 9: soak load errors: {errors[:3]}")
+
+        svc1 = ReconstructionService(mk_cfg()).start()
+        rss_warm = rss_mb()
+        storms = svc1.registry.counter("sl_recompile_storms_total")
+        storms_a0 = storms.value
+        t_soak0 = time.perf_counter()
+        run_phase(svc1, 0.45 * SOAK_S)
+        storms_a = storms.value - storms_a0
+        cache1 = svc1.cache.stats()
+        dup_submitted_a = counters["dup_submitted"]
+        for wk in svc1.workers:
+            wk.abort()
+            wk.join(10.0)
+        burst = [svc1.submit_array(tagged(3, i)) for i in range(4)]
+        svc1.abort()
+        print(f"config 9: simulated SIGKILL with {len(burst)} queued jobs "
+              f"(phase A: {counters['done']} done, {counters['failed']} "
+              "contained failures)", flush=True)
+
+        t_rec0 = time.perf_counter()
+        svc2 = ReconstructionService(mk_cfg()).start(recover_from=True)
+        recovery_s = time.perf_counter() - t_rec0
+        rss_mid = rss_mb()
+        mem_mid = device_in_use(svc2)
+        storms = svc2.registry.counter("sl_recompile_storms_total")
+        storms_b0 = storms.value
+        for job in burst:
+            j2 = svc2.get_job(job.job_id)
+            if j2 is None or not j2.wait(600.0) or j2.status != "done" \
+                    or j2.result_meta["points"] <= 0:
+                fail(f"config 9: burst job {job.job_id} not recovered: "
+                     f"{None if j2 is None else j2.status_dict()}")
+        cross_hits = 0
+        for v in dup_variants:
+            j = svc2.submit_array(v)
+            if not j.wait(600.0) or j.status != "done":
+                fail(f"config 9: duplicate after the restart: "
+                     f"{j.status_dict()}")
+            cross_hits += bool(j.result_meta.get("content_cache_hit"))
+        run_phase(svc2, max(5.0, SOAK_S - (time.perf_counter() - t_soak0)))
+        soak_wall = time.perf_counter() - t_soak0
+        storms_b = storms.value - storms_b0
+        cache2 = svc2.cache.stats()
+        rss_end = rss_mb()
+        mem_end = device_in_use(svc2)
+        out["session"] = session_fn(svc2)
+        if not svc2.drain(timeout=120.0):
+            fail("config 9: the soak's drain timed out")
+        journal = read_live_state(store_dir)
+
+    scans_per_s = counters["done"] / soak_wall
+    dup_ratio = (counters["hits"] / counters["dup_submitted"]
+                 if counters["dup_submitted"] else None)
+    out.update(soak_s=soak_wall, soak_scans_per_s=scans_per_s,
+               soak_recovery_s=recovery_s, counters=dict(counters),
+               dup_hit_ratio=dup_ratio, cross_restart_dup_hits=cross_hits,
+               storms=(storms_a, storms_b),
+               cache_misses=(cache1["misses"], cache2["misses"]),
+               rss_mb=(rss_warm, rss_mid, rss_end),
+               device_bytes_in_use=(mem_mid, mem_end),
+               journal_live=(len(journal.jobs), len(journal.sessions)))
+    print(f"config 9: soak_scans_per_s {scans_per_s:.3f}, soak_recovery_s "
+          f"{recovery_s:.3f}; {json.dumps(out, default=str)}", flush=True)
+    checks = {
+        "storms": storms_a == 0 and storms_b == 0,
+        "misses": cache1["misses"] == 3 and cache2["misses"] == 3,
+        "cross_hits": (cross_hits == len(dup_variants)
+                       if dup_submitted_a >= len(dup_variants) else True),
+        "dup_ratio": (dup_ratio >= 0.6
+                      if counters["dup_submitted"] >= 20 else True),
+        "rss": rss_end - rss_warm < 2048.0,
+        "device_memory": (mem_mid is not None and mem_end is not None
+                          and mem_end <= 1.3 * mem_mid + (512 << 20)),
+        "journal_clean": not journal.jobs and not journal.sessions}
+    print(f"config 9: checks {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"config 9: {checks}")
+    return out
+
+
+def serve_session(dev, ring, svc) -> dict:
+    """One streaming session through ``svc`` over HTTP: the ring's first 4
+    stops at 1080p with ``"tsdf"`` previews, then ``finalize`` to an STL,
+    which must equal, bit for bit, the in-process ``IncrementalSession``
+    with the same stops and params on the card; then a splat-lane session
+    whose ``render`` must give a PNG of the asked size. Launches counted
+    for each."""
+    import io
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.png import (
+        decode_png,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        write_stl,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ServeHTTPServer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.client import (
+        ServeClient,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        IncrementalSession,
+    )
+
+    stacks, proj = ring["stacks"], ring["proj"]
+    counters = tool_counters()
+    http = ServeHTTPServer(svc, port=0).start()
+    client = ServeClient(f"http://127.0.0.1:{http.port}", timeout_s=300.0,
+                         retries=0)
+    out = {}
+    try:
+        _sync(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        sid = client.create_session()
+        for k in range(4):
+            st = client.wait(client.submit_stop(sid, stacks[k]),
+                             timeout_s=300.0)
+            if st["status"] != "done" or not st["result"]["fused"]:
+                fail(f"serve session: stop {k}: {st}")
+        fin = client.finalize_session(sid, "stl")
+        st = client.wait(fin["job_id"], timeout_s=300.0)
+        if st["status"] != "done":
+            fail(f"serve session finalize: {st}")
+        served = client.result(fin["job_id"])
+        _sync(dev)
+        out["session_s"] = time.perf_counter() - t0
+        out["session_launches"] = {k: c.launches
+                                   for k, c in counters.items()}
+        local = IncrementalSession(ring["calib"], proj.col_bits,
+                                   proj.row_bits, params=svc.config.stream,
+                                   device=dev)
+        for k in range(4):
+            local.add_stop(stacks[k])
+        res = local.finalize(mesh=True)
+        buf = io.BytesIO()
+        write_stl(buf, res.mesh)
+        same = buf.getvalue() == served
+        print(f"serve session: 4 stops over HTTP + finalize in "
+              f"{out['session_s']:.3f} s, {st['result']}; launches "
+              f"{ {k: v for k, v in out['session_launches'].items() if v} };"
+              f" STL bit-equal to the in-process session: {same}",
+              flush=True)
+        if not same:
+            fail("serve session: the finalized STL differs from the "
+                 "in-process IncrementalSession's")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        sid = client.create_session(representation="splat")
+        for k in range(4):
+            st = client.wait(client.submit_stop(sid, stacks[k]),
+                             timeout_s=300.0)
+            if st["status"] != "done":
+                fail(f"serve splat session: stop {k}: {st}")
+        size = svc.config.stream.splat_render_sizes[0]
+        data, meta = client.render(sid, 30.0, 20.0, size=size)
+        img = decode_png(data)
+        _sync(dev)
+        out["render_s"] = time.perf_counter() - t0
+        out["render_launches"] = {k: c.launches for k, c in counters.items()}
+        client.delete_session(sid)
+        print(f"serve render: splat session of 4 stops, one {size} view in "
+              f"{out['render_s']:.3f} s: PNG {img.shape}, splats "
+              f"{meta.get('render_splats')}; launches "
+              f"{ {k: v for k, v in out['render_launches'].items() if v} }",
+              flush=True)
+        if img.shape != (size[1], size[0], 3) or not img.any():
+            fail(f"serve render: PNG {img.shape} for {size}")
+        if out["render_launches"]["composite_cells"] <= 0:
+            fail("serve render never launched composite_cells")
+    finally:
+        http.stop()
+    return out
+
+
+def serve_path(dev, ring) -> dict:
+    """Bench config 7, then config 9 with the streaming session driven
+    through its recovered service before the drain. Returns the numbers
+    and the launch counts."""
+    c7 = serve_config7(dev, ring)
+    c9 = serve_config9(dev, ring,
+                       lambda svc: serve_session(dev, ring, svc))
+    return {"config7": c7, "config9": c9}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4099,6 +4843,10 @@ def main() -> int:
     ap.add_argument("--files-only", action="store_true",
                     help="build, render the ring, then the files phase "
                          "only (the command-line tools; no result line)")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="build, render the ring's first 4 stops, then the "
+                         "serve phase only (bench configs 7 and 9 and a "
+                         "session; no result line)")
     ap.add_argument("--diagnose-determinism", action="store_true",
                     help="build, then run the 360° and mesh paths once "
                          "under torch.use_deterministic_algorithms(True, "
@@ -4143,6 +4891,9 @@ def main() -> int:
     if args.files_only:
         files_path(dev, files_ring(dev))
         return 0
+    if args.serve_only:
+        serve_path(dev, files_ring(dev, n_stops=4))
+        return 0
     band = sphere_band(dev)
     kernels = [check_decode(dev), check_nearest_one(dev),
                check_nearest_one_batched(dev), check_matvec(dev, band),
@@ -4180,12 +4931,21 @@ def main() -> int:
     # Last, so every profiler window above runs as it did before this phase
     # was added (the profiler records fewer launches late in a long run).
     files = files_path(dev, ring)
+    calib_launches = calibration_path(dev)
+    served = serve_path(dev, ring)
     del ring
     for k in kernels:
+        name = k["name"].replace("_batched", "")
         k["launches"] = launches[k["name"]]
-        k["files"] = files.get(k["name"].replace("_batched", ""), {})
+        k["files"] = files.get(name, {})
+        k["calibration"] = calib_launches[name]
+        k["serve"] = {
+            "config7": served["config7"]["launches"][name],
+            "session": served["config9"]["session"]["session_launches"][name],
+            "render": served["config9"]["session"]["render_launches"][name]}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "files")
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "files",
+             "calibration", "serve")
     print(json.dumps({"kernels": [
         {key: k[key] for key in order + tuple(
             d for d in ("deep_3c", "deep_3d") if d in k)}

@@ -1,6 +1,6 @@
 """Configuration dataclasses: a copy of the JAX package's ``config.py``
 parameter sets the 360° path reads (projector geometry, decode masks,
-triangulation) and the dated session root."""
+triangulation), the calibration target and the dated session root."""
 
 from __future__ import annotations
 
@@ -63,6 +63,15 @@ class TriangulationConfig:
     # Reject points behind the camera or absurdly far.
     min_t: float = 0.0
     max_t: float = 1e5
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckerboardConfig:
+    """Calibration target; reference `server/config.py:24-27` (7x7 @ 35 mm)."""
+
+    cols: int = 7
+    rows: int = 7
+    square_mm: float = 35.0
 
 
 def dated_output_root(base: str = ".") -> str:

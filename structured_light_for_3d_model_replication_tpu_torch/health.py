@@ -17,13 +17,17 @@ import math
 
 import numpy as np
 
+from .utils import events
+
 log = logging.getLogger(__name__)
 
 
 def emit(event: str, severity: str = "info", **fields) -> None:
-    """Log one event record (the JAX package's ``events.record``): the
-    event name, then its fields as ``key=value``."""
-    level = logging.WARNING if severity in ("warning", "fault") \
+    """Record one event in the flight recorder (``utils.events``, as the
+    JAX package's ``events.record``) and log it: the event name, then its
+    fields as ``key=value``."""
+    events.record(event, severity=severity, **fields)
+    level = logging.WARNING if severity in ("warning", "error", "fault") \
         else logging.INFO
     log.log(level, "%s %s", event,
             " ".join(f"{k}={v}" for k, v in fields.items()))
@@ -37,7 +41,27 @@ def emit(event: str, severity: str = "info", **fields) -> None:
 class ScanFault(RuntimeError):
     """Base of the structured scan-pipeline error taxonomy: layers raise the
     specific subclass; orchestration catches ``ScanFault`` to contain a
-    failure without masking programming errors."""
+    failure without masking programming errors.
+
+    Construction records a fault event in the flight recorder
+    (``utils.events``) with the correlation context ambient at the raise
+    site. ``flight_severity`` is that event's severity; designed
+    flow-control subclasses (serve's backpressure rejections) set
+    "warning", so only genuine faults trigger dump-on-fault."""
+
+    flight_severity = "fault"
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        try:
+            events.fault(self)
+        except Exception as e:  # never mask the fault being raised
+            log.debug("flight recorder unavailable at raise site: %s", e)
+
+
+class CaptureError(ScanFault):
+    """A frame capture failed (timeout, unreadable/truncated file) after
+    the configured retries."""
 
 
 class StopQualityError(ScanFault):

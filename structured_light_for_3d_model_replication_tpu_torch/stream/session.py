@@ -243,8 +243,11 @@ class IncrementalSession:
                              f"'splat' or 'archival', got "
                              f"{params.representation!r}")
         self.device = resolve_device(device)
+        # None: stops arrive decoded (``add_decoded``), as the serve layer
+        # hands them over; ``add_stop`` needs a calibration.
         self.calib = calib.to(self.device) \
-            if calib.Nc.device != self.device else calib
+            if calib is not None and calib.Nc.device != self.device \
+            else calib
         self.col_bits = col_bits
         self.row_bits = row_bits
         self.params = params
@@ -277,6 +280,9 @@ class IncrementalSession:
         self._last_integrate_s = 0.0
         self.preview = None
         self.preview_meta: dict = {}
+        # Set by a serving layer under overload: the progressive preview
+        # of the next stops is skipped (the last one keeps serving).
+        self.suppress_previews = False
         self._finalized = False
 
     # -- properties --------------------------------------------------------
@@ -392,7 +398,7 @@ class IncrementalSession:
             kind, value = overlap
             rec.status = kind
             emit("stop_skipped_covisible", scan_id=self.scan_id, stop=label,
-                 kind=kind, overlap=round(value, 4),
+                 message=f"redundant stop ({kind})", overlap=round(value, 4),
                  coverage=round(coverage, 4),
                  threshold=(p.covis_duplicate_overlap
                             if kind == "skipped_duplicate"
@@ -595,6 +601,11 @@ class IncrementalSession:
             return False
         n = len(self._labels)
         if n != 1 and n % p.preview_every != 0:
+            return False
+        if self.suppress_previews:
+            emit("preview_shed", scan_id=self.scan_id,
+                 message="progressive preview skipped under overload "
+                         "shedding", stops_fused=n)
             return False
         t0 = time.monotonic()
         mesh = self._mesher(self._model[0], self._model[2])

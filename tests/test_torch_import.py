@@ -65,7 +65,14 @@ def test_every_port_module_imports_without_jax():
                  "splat.preview", "_native", "io._fileobj", "io.images",
                  "io.matcal", "models.realism", "cli", "cli.__main__",
                  "cli.process_cloud", "cli.read_calib", "cli.merge_360",
-                 "cli.scan_360", "cli.mesh", "cli.render"):
+                 "cli.scan_360", "cli.mesh", "cli.render", "cli.serve",
+                 "calibration", "hw", "hw.faults", "utils.log",
+                 "utils.events", "utils.trace", "utils.telemetry",
+                 "utils.sanitize", "stream.warmup", "serve", "serve.jobs",
+                 "serve.batcher", "serve.governor", "serve.tenants",
+                 "serve.blobstore", "serve.store", "serve.client",
+                 "serve.cache", "serve.worker", "serve.lanes",
+                 "serve.sessions", "serve.service"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -87,6 +94,11 @@ def test_entry_modules_do_not_load_kernel_bindings():
                                 render, scan_360)
         from {PORT}.io import _fileobj, images, matcal
         from {PORT}.models import realism
+        from {PORT} import calibration, serve
+        from {PORT}.cli import serve as cli_serve
+        from {PORT}.hw import faults
+        from {PORT}.stream import warmup
+        from {PORT}.utils import events, log, sanitize, telemetry, trace
         loaded = [m for m in sys.modules if m.startswith("{PORT}.kernels")
                   or m == "triton"]
         assert not loaded, loaded
@@ -245,3 +257,39 @@ def test_composite_refuses_gradients_and_splat_entry_points_need_a_card(
             call()
     img, alpha = splat_render.render(*arrays, cam, cfg, device="cpu")
     assert img.shape == (24, 32, 3) and float(alpha.max()) > 0.0
+
+
+def test_serve_and_calibration_entry_points_raise_without_cuda(monkeypatch):
+    """The serving replica, its session warm-up and the corner decode:
+    ``device=None`` means the card and raises without one."""
+    from structured_light_for_3d_model_replication_tpu_torch import (
+        calibration,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ProgramCache,
+        ReconstructionService,
+        ServeConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        StreamParams,
+        warm_session_programs,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    proj = ProjectorConfig(width=16, height=8)
+    corners = np.zeros((4, 1, 2), np.float32)
+    calls = (lambda: ReconstructionService(ServeConfig(proj=proj)),
+             lambda: ProgramCache(lambda h, w: None),
+             lambda: warm_session_programs(StreamParams(), 64),
+             lambda: calibration.decode_at_corners(
+                 np.zeros((proj.n_frames, 4, 4), np.uint8), corners, proj))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    uv = calibration.decode_at_corners(
+        np.zeros((proj.n_frames, 4, 4), np.uint8), corners, proj,
+        device="cpu")
+    assert uv.shape == (4, 2) and uv.dtype == np.float32

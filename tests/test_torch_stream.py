@@ -409,8 +409,12 @@ def test_session_parameter_checks(rig):
                                params=StreamParams(representation="splat"),
                                device="cpu")
     assert isinstance(splat.previewer, SplatPreviewMesher)
-    with pytest.raises(NotImplementedError, match="step 4"):
-        warm_session_programs()
+    # The serve replica's session warm-up is ported: it runs the session
+    # lane once on three synthetic stops, on the device asked for.
+    warm = warm_session_programs(
+        StreamParams(merge=merge.MergeParams(**FAST), **STREAM),
+        4096, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits, device="cpu")
+    assert warm["stops"] == 3 and warm["representation"] == "tsdf"
     # The batch stream (bench config 2b) is ported: it needs two stops.
     with pytest.raises(ValueError, match="at least 2 stops"):
         scan360.scan_stream_to_cloud(iter([]), calib, 8, 7, device="cpu")
