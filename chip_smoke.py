@@ -4,13 +4,15 @@
 merged 360° cloud and on to the printable STL, through the streaming
 session and its splat appearance tier (rendered novel views), through
 the cleanup path of a single capture, the command-line tools, the
-calibration and one serving replica, with its CUDA kernels.
+calibration, one serving replica and a fleet of three behind the router,
+with its CUDA kernels.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
     python3 chip_smoke.py --profile        # full run + profiled 360° paths
     python3 chip_smoke.py --files-only     # build + the files phase only
     python3 chip_smoke.py --serve-only     # build + the serve phase only
+    python3 chip_smoke.py --fleet-only     # build + the fleet phase only
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -146,11 +148,29 @@ Phases, in order; any failure exits non-zero before the result line:
    assertions, and through its recovered service a 4-stop ``"tsdf"``
    session over HTTP whose STL must equal the in-process session's bit
    for bit and a splat-lane session's rendered PNG;
-9. a ``kernels`` JSON line (``matvec_band`` and ``classify_bricks`` also
-   carry their numbers on 3d's band and each deep row's launches under
-   ``deep_3d``; every kernel its launches by tool in the files phase under
-   ``files``, in the calibration phase under ``calibration`` and in the
-   serve phase under ``serve``), the card line again, and last the result line
+8e. the fleet (``--fleet-only``: build and this phase): bench config 10
+   as written (``bench.py:2309-2608``) — three replica processes of the
+   port's ``cli serve --device cuda`` on the soak/fleet smokes' tiny rig
+   (each with its own journal, a shared handoff directory, the others as
+   peers), loading the kernel library this process built, behind an
+   in-process ``FleetRouter``; 30 s of load (the bench's 60, cut to keep
+   the run inside its time limit) from two threads, a session
+   pinned with 2 stops, a burst at the pinned replica, its SIGKILL, the
+   proactive re-pin with no client op, a replacement with ``--recover``,
+   stop 4 and the PLY finalize; every assertion of the bench's config 10,
+   the finalized PLY bit-equal to the same 4 stops through an in-process
+   service that was never killed, every replica's ``/metrics`` with
+   ``decode_maps`` launches (``serve_kernel_launches_total``) and device
+   memory above 0, and ``cli diagnose --probe --url <survivor>`` in this
+   process writing the JAX package's members with one ``decode_maps``
+   launch;
+9. each phase's wall seconds and the total on one line, a ``kernels`` JSON
+   line (``matvec_band`` and ``classify_bricks`` also carry their numbers
+   on 3d's band and each deep row's launches under ``deep_3d``; every
+   kernel its launches by tool in the files phase under ``files``, in the
+   calibration phase under ``calibration``, in the serve phase under
+   ``serve`` and over the fleet's replicas and the diagnose probe under
+   ``fleet``), the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -2872,24 +2892,12 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 
 
 def tool_counters():
-    """Every kernel's launch counter, by kernel name."""
-    from structured_light_for_3d_model_replication_tpu_torch.ops import (
-        brickknn_kernel,
-        decode,
-        marching_classify,
-        nn,
-        poisson_matvec,
-        splat_composite,
-        tsdf_combine,
+    """Every kernel's launch counter (its wrapper), by kernel name."""
+    from structured_light_for_3d_model_replication_tpu_torch.utils import (
+        telemetry,
     )
 
-    return {"decode_maps": decode.decode_maps,
-            "nearest_one": nn.nearest_one,
-            "matvec_band": poisson_matvec.matvec_band,
-            "classify_bricks": marching_classify.classify_bricks,
-            "tsdf_combine": tsdf_combine.tsdf_combine,
-            "brick_knn_cells": brickknn_kernel.brick_knn_cells,
-            "composite_cells": splat_composite.composite}
+    return telemetry.kernel_wrappers()
 
 
 def run_tool(dev, label: str, argv: list[str], quiet: bool = False):
@@ -3423,9 +3431,11 @@ def cleanup_engines(dev, bg, clean, spheres) -> None:
     its plain version on the two inputs that path gave it (the outlier
     removal's padded k = 20 sweep without self, the normals' k = 30 sweep
     of the cleaned cloud), then, with the exact neighbours by brute force,
-    the ``dense`` engine, ``morton`` (the port's route at this size before
-    the brick kernel) and ``rescue`` (the path's), each sweep's recall, the
-    outlier keep mask and the normals, compared pair by pair."""
+    ``morton`` (the port's route at this size before the brick kernel) and
+    ``rescue`` (the path's), each sweep's recall, the outlier keep mask
+    and the normals, compared pair by pair. The ``dense`` engine is left
+    out: its two sweeps took 149 s of the script's time limit on the card
+    (PERF.md §4), and the exact neighbours already stand for it."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.models import (
@@ -3472,7 +3482,7 @@ def cleanup_engines(dev, bg, clean, spheres) -> None:
                                                    ])))
     _sync(dev)
     secs = {"exact": time.perf_counter() - t}
-    methods = ("dense", "morton", "rescue")
+    methods = ("morton", "rescue")
     for m in methods:
         t = time.perf_counter()
         for name, p, v, k, excl, _ in sweeps:
@@ -4826,7 +4836,574 @@ def serve_path(dev, ring) -> dict:
     return {"config7": c7, "config9": c9}
 
 
+#: Bench config 10 (``bench.py:2309-2608``): its load seconds, cut from
+#: ``SL_BENCH_FLEET_S``'s 60 to keep the whole run inside its time limit
+#: (PERF.md §4), and the replicas' recipe (the soak/fleet smokes' tiny rig
+#: and flags, ``scripts/soak_smoke.py:70-92`` and
+#: ``scripts/fleet_smoke.py:91-110``), copied here: those scripts start the
+#: JAX package's command-line tool.
+FLEET_S = 30.0
+FLEET_REPLICAS = 3
+FLEET_PROJ = (64, 32)          # projector width, height: 6 + 5 bits
+FLEET_CAM = (24, 40)           # camera height, width = the one bucket
+FLEET_STREAM = {
+    "method": "posegraph", "view_cap": 1024, "preview_points": 1024,
+    "preview_depth": 4, "final_depth": 5, "model_cap": 8192, "window": 3,
+    "representation": "poisson",
+    "merge": {"voxel_size": 4.0, "ransac_iterations": 512,
+              "icp_iterations": 8, "fpfh_max_nn": 24, "normals_k": 8,
+              "max_points": 1024, "posegraph_iterations": 10,
+              "step_deg": 12.0},
+}
+#: Each replica's command line after ``cli serve`` (the recipe's flags).
+FLEET_FLAGS = ("--proj-width", str(FLEET_PROJ[0]),
+               "--proj-height", str(FLEET_PROJ[1]),
+               "--buckets", f"{FLEET_CAM[0]}x{FLEET_CAM[1]}",
+               "--batch-sizes", "1,2", "--linger-ms", "5",
+               "--mesh-depth", "6", "--preview-depth", "4",
+               "--stream-json", json.dumps(FLEET_STREAM),
+               "--drain-timeout", "60")
+#: The bundle members ``cli diagnose --probe --url`` writes in either
+#: package.
+DIAGNOSE_MEMBERS = frozenset((
+    "env.json", "metrics.json", "metrics.prom", "spans.json",
+    "events.jsonl", "perfetto.json", "telemetry.json", "health.json",
+    "probe.json", "remote_healthz.json", "remote_metrics.prom",
+    "remote_events.jsonl", "MANIFEST.json"))
+
+
+def free_ports(n: int) -> list[int]:
+    """n distinct free loopback ports, picked before any replica listens
+    (each replica needs its peers' URLs at start)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class Replica:
+    """One ``cli serve`` replica of the fleet recipe in a subprocess: its
+    own journal under ``shared/replicas/r<idx>``, the shared handoff
+    directory, every other port as a peer. ``ready(timeout)`` waits for
+    its ``serving on :<port>`` line."""
+
+    def __init__(self, shared: str, idx: int, ports: list[int], device,
+                 recover: bool = False, env: dict | None = None):
+        import re
+        import threading
+
+        self.idx, self.port = idx, ports[idx]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.store = os.path.join(shared, "replicas", f"r{idx}")
+        peers = ",".join(f"http://127.0.0.1:{p}"
+                         for i, p in enumerate(ports) if i != idx)
+        cmd = [sys.executable, "-m",
+               "structured_light_for_3d_model_replication_tpu_torch.cli",
+               "serve", "--port", str(self.port), *FLEET_FLAGS,
+               "--store-dir", self.store, "--replica-id", f"r{idx}",
+               "--handoff-dir", os.path.join(shared, "handoff"),
+               "--peers", peers, "--device", str(device)]
+        if recover:
+            cmd.append("--recover")
+        self.lines: list[str] = []
+        self._up = threading.Event()
+        self.proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)) or ".",
+            env=dict(os.environ, **(env or {})), stderr=subprocess.PIPE,
+            text=True)
+
+        def pump():
+            for line in self.proc.stderr:
+                self.lines.append(line)
+                if re.search(r"serving on :\d+", line):
+                    self._up.set()
+            self._up.set()
+
+        threading.Thread(target=pump, daemon=True).start()
+
+    def ready(self, timeout_s: float) -> None:
+        if not self._up.wait(timeout_s) or self.proc.poll() is not None:
+            self.proc.kill()
+            fail(f"fleet: replica r{self.idx} never served:\n"
+                 + "".join(self.lines[-30:]))
+
+    def stop(self, timeout_s: float = 180.0) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=timeout_s)
+
+
+def metric_of(text: str, name: str) -> float:
+    """Sum of every sample of ``name`` (any labels) in a Prometheus scrape."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name):
+            try:
+                total += float(line.rsplit(" ", 1)[1])
+            except (ValueError, IndexError):
+                continue
+    return total
+
+
+def scrape(url: str) -> dict:
+    """A replica's kernel launches and device bytes in use, from its
+    ``/metrics``."""
+    import re
+
+    from structured_light_for_3d_model_replication_tpu_torch.serve.client import (
+        ServeClient,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.utils.telemetry import (
+        KERNELS,
+    )
+
+    text = ServeClient(url, timeout_s=60.0).metrics()
+    mem = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^sl_device_bytes_in_use\{device="([^"]+)"\} (\S+)$', text, re.M)}
+    return {"launches": {k: int(metric_of(
+                text, f'serve_kernel_launches_total{{kernel="{k}"}}'))
+                for k in KERNELS},
+            "device_bytes_in_use": mem}
+
+
+def fleet_config(dev, **kw):
+    """The replicas' ``ServeConfig`` as the recipe's flags build it, for
+    an in-process service on ``dev``."""
+    import dataclasses
+
+    from structured_light_for_3d_model_replication_tpu_torch.cli import (
+        serve as cli_serve,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ServeConfig,
+    )
+
+    d = ServeConfig()
+    stream = cli_serve._stream_params(
+        dataclasses.replace(d.stream, preview_depth=4), json.dumps(
+            FLEET_STREAM))
+    return ServeConfig(device=str(dev), proj=ProjectorConfig(
+        width=FLEET_PROJ[0], height=FLEET_PROJ[1]), buckets=(FLEET_CAM,),
+        batch_sizes=(1, 2), linger_ms=5.0, mesh_depth=6, stream=stream,
+        **kw)
+
+
+def fleet_scene():
+    """Config 10's stop (the default scene) and its 4-stop two-sphere ring
+    at the recipe's rig, rendered with the port's numpy rig."""
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    proj = ProjectorConfig(width=FLEET_PROJ[0], height=FLEET_PROJ[1])
+    h, w = FLEET_CAM
+    cam = synthetic.default_calibration(h, w, proj)
+    stack, _ = synthetic.render_scan(synthetic.Scene(), *cam, h, w, proj)
+    scene = synthetic.Scene(
+        wall_z=None,
+        spheres=(synthetic.Sphere((0.0, 2.0, 500.0), 80.0, 0.9),
+                 synthetic.Sphere((55.0, -30.0, 460.0), 35.0, 0.7)))
+    ring = [s for s, _ in synthetic.render_turntable_scans(
+        scene, n_stops=4, degrees_per_stop=12.0, cam_K=cam[0],
+        proj_K=cam[1], R=cam[2], T=cam[3], cam_height=h, cam_width=w,
+        proj=proj)]
+    return stack, ring
+
+
+def uninterrupted_ply(dev, ring) -> bytes:
+    """The ring's 4 stops through one in-process service on ``dev`` with
+    the replicas' config, never killed: its finalized PLY."""
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ReconstructionService,
+    )
+
+    svc = ReconstructionService(fleet_config(dev)).start()
+    try:
+        sid = svc.create_session({})["session_id"]
+        for k, s in enumerate(ring):
+            job = svc.submit_session_stop(sid, s)
+            if not job.wait(300.0) or job.status != "done":
+                fail(f"fleet reference: stop {k}: {job.status_dict()}")
+        return svc.finalize_session(sid, "ply").result_bytes
+    finally:
+        svc.drain(timeout=60.0)
+
+
+def fleet_chaos(dev, load_s: float = FLEET_S, env: dict | None = None,
+                start_s: float = 300.0, resubmit_s: float = 30.0) -> dict:
+    """Bench config 10 as written (``bench.py:2309-2608``) on the port:
+    ``FLEET_REPLICAS`` replicas of the recipe (``Replica``) behind an
+    in-process ``FleetRouter`` (check interval 0.25 s), two load threads
+    for ``load_s`` seconds (one submit in five a duplicate drawn from 4
+    corner-tagged variants), a session pinned with 2 stops of the ring;
+    at 0.4 · ``load_s`` a 4-job burst straight at the pinned replica, its
+    SIGKILL, the proactive re-pin with no client op, stop 3, a
+    replacement on the same port with ``--recover`` (≥ 1 burst job
+    recovered), the rest of the load, stop 4 and the PLY finalize. Every
+    assertion of the bench's config 10 is checked (``fail``); the port
+    adds: the finalized PLY equal, bit for bit, to ``uninterrupted_ply``;
+    ``cli diagnose --probe --url <survivor>`` in this process writing the
+    JAX package's members. A load job whose id the replacement does not
+    know (terminal on the victim just before the kill) is resubmitted
+    after ``resubmit_s`` seconds, as the bench does after 30; ``start_s``
+    bounds each replica's start and ``env`` is added to the replicas'
+    environment. Returns the metrics, the router's stats and signals,
+    each replica's scrape (the victim's last before its kill) and the
+    probe's bundle."""
+    import shutil
+    import tarfile
+    import tempfile
+    import threading
+
+    from structured_light_for_3d_model_replication_tpu_torch.cli import (
+        diagnose,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        FleetRouter,
+        RouterHTTPServer,
+        SessionStreamStore,
+        read_live_state,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.client import (
+        ServeClient,
+        ServeClientError,
+    )
+
+    fstack, ring = fleet_scene()
+    t0 = time.perf_counter()
+    ref_ply = uninterrupted_ply(dev, ring)
+    out = {"reference_s": time.perf_counter() - t0}
+
+    def tagged(kind: int, n: int) -> np.ndarray:
+        v = fstack.copy()
+        v[0, 0, 0] = kind
+        for b in range(4):
+            v[0, 0, 1 + b] = (n >> (8 * b)) & 0xFF
+        return v
+
+    dup_variants = [tagged(2, d) for d in range(4)]
+    shared = tempfile.mkdtemp(prefix="sl-fleet-")
+    ports = free_ports(FLEET_REPLICAS)
+    t0 = time.perf_counter()
+    reps = {i: Replica(shared, i, ports, dev, env=env)
+            for i in range(FLEET_REPLICAS)}
+    router = rhttp = None
+    try:
+        for r in reps.values():
+            r.ready(start_s)
+        out["replicas_start_s"] = time.perf_counter() - t0
+        urls = [reps[i].url for i in range(FLEET_REPLICAS)]
+        router = FleetRouter(urls, check_interval_s=0.25)
+        rhttp = RouterHTTPServer(router, port=0).start()
+        client = ServeClient(f"http://127.0.0.1:{rhttp.port}",
+                             timeout_s=120.0, retries=6,
+                             retry_backoff_s=0.2, retry_budget_s=120.0)
+        counters = {"done": 0, "hits": 0, "dup_submitted": 0,
+                    "dup_hits": 0}
+        slowest = {"total": 0.0}
+        errors: list[str] = []
+        stop_flag = threading.Event()
+        lock = threading.Lock()
+        n_threads = 2
+
+        def load_loop(k):
+            j = 0
+            while not stop_flag.is_set():
+                i = k + n_threads * j
+                j += 1
+                dup = i % 5 == 0
+                stack_v = (dup_variants[(i // 5) % len(dup_variants)]
+                           if dup else tagged(1, i))
+                t_sub = time.perf_counter()
+                try:
+                    jid = client.submit(stack_v)
+                except Exception as e:
+                    errors.append(f"submit: {e}")
+                    return
+                t_wait = time.perf_counter()
+                deadline = time.monotonic() + 420.0
+                unknown_since = None
+                while True:
+                    try:
+                        st = client.wait(jid, timeout_s=20.0)
+                        break
+                    except ServeClientError as e:
+                        if dup and "unknown job" in str(e):
+                            # A cache hit acked by the killed replica:
+                            # terminal at the ack, never journaled.
+                            st = {"status": "done",
+                                  "result": {"content_cache_hit": True}}
+                            break
+                        if "unknown job" in str(e):
+                            # Terminal on the victim just before the
+                            # kill: recovery drops its id; the same bytes
+                            # resubmitted must come back.
+                            now = time.monotonic()
+                            if unknown_since is None:
+                                unknown_since = now
+                            elif now - unknown_since > resubmit_s:
+                                try:
+                                    jid = client.submit(stack_v)
+                                    unknown_since = None
+                                except Exception as re_e:
+                                    print(f"fleet: resubmit of {jid} "
+                                          f"refused ({re_e}); retrying",
+                                          flush=True)
+                        else:
+                            unknown_since = None
+                        if time.monotonic() > deadline:
+                            errors.append(f"job {jid} lost")
+                            return
+                        time.sleep(1.0)
+                t_end = time.perf_counter()
+                with lock:
+                    if t_end - t_sub > slowest["total"]:
+                        slowest.update(total=t_end - t_sub,
+                                       submit=t_wait - t_sub,
+                                       poll=t_end - t_wait, job=jid)
+                    if st["status"] != "done":
+                        errors.append(f"job failed: {st}")
+                        return
+                    counters["done"] += 1
+                    hit = bool(st["result"].get("content_cache_hit"))
+                    counters["hits"] += hit
+                    if dup:
+                        counters["dup_submitted"] += 1
+                        counters["dup_hits"] += hit
+
+        sid = client.create_session()
+        for k, s in enumerate(ring[:2]):
+            st = client.wait(client.submit_stop(sid, s), timeout_s=300.0)
+            if st["status"] != "done":
+                fail(f"fleet: session stop {k}: {st}")
+        pin = router.session_url(sid)
+        victim = urls.index(pin)
+        survivor_idxs = [i for i in range(FLEET_REPLICAS) if i != victim]
+        survivors = {i: ServeClient(urls[i], timeout_s=60.0)
+                     for i in survivor_idxs}
+        misses0 = {i: metric_of(c.metrics(),
+                                "serve_program_cache_misses_total")
+                   for i, c in survivors.items()}
+
+        t_load0 = time.perf_counter()
+        threads = [threading.Thread(target=load_loop, args=(k,),
+                                    daemon=True) for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        time.sleep(0.4 * load_s)
+
+        vclient = ServeClient(urls[victim], timeout_s=60.0)
+        burst = [vclient.submit(fstack + np.uint8(100 + i))
+                 for i in range(4)]
+        scrapes = {f"r{victim}": scrape(urls[victim])}
+        reps[victim].proc.kill()
+        reps[victim].proc.wait(timeout=30.0)
+        t_kill = time.monotonic()
+        repin_deadline = time.monotonic() + 120.0
+        while router.session_url(sid) == pin \
+                and time.monotonic() < repin_deadline:
+            time.sleep(0.05)
+        proactive_repin_s = time.monotonic() - t_kill
+        if router.session_url(sid) == pin:
+            fail("fleet: the proactive re-pin never fired")
+        repins_before_op = int(router.stats()["proactive_repins"])
+        if repins_before_op < 1:
+            fail(f"fleet: no proactive re-pin: {router.stats()}")
+        t_op = time.monotonic()
+        st = client.wait(client.submit_stop(sid, ring[2]), timeout_s=300.0)
+        if st["status"] != "done":
+            fail(f"fleet: stop 3 after the failover: {st}")
+        failover_s = time.monotonic() - t_op
+        adopter = urls.index(router.session_url(sid))
+        print(f"fleet: SIGKILLed pinned replica r{victim}; proactive re-pin "
+              f"to r{adopter} in {proactive_repin_s:.3f} s, first "
+              f"post-failover stop in {failover_s:.3f} s", flush=True)
+
+        t_rep = time.perf_counter()
+        reps[victim] = Replica(shared, victim, ports, dev, recover=True,
+                               env=env)
+        reps[victim].ready(start_s)
+        deadline = time.monotonic() + 120.0
+        while urls[victim] not in router.ready_replicas():
+            if time.monotonic() > deadline:
+                fail("fleet: the router never saw the replacement ready")
+            time.sleep(0.1)
+        out["replacement_start_s"] = time.perf_counter() - t_rep
+        recovered = gone = 0
+        for jid in burst:
+            try:
+                st = client.wait(jid, timeout_s=300.0)
+            except ServeClientError:
+                gone += 1
+                continue
+            if st["status"] != "done":
+                fail(f"fleet: burst job {jid}: {st}")
+            recovered += 1
+        if recovered < 1:
+            fail("fleet: no acked burst job recovered")
+
+        time.sleep(max(2.0, load_s - (time.perf_counter() - t_load0)))
+        stop_flag.set()
+        for t in threads:
+            t.join(timeout=600.0)
+        load_wall = time.perf_counter() - t_load0
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"fleet: client errors {errors[:3]}")
+
+        st = client.wait(client.submit_stop(sid, ring[3]), timeout_s=300.0)
+        if st["status"] != "done":
+            fail(f"fleet: stop 4: {st}")
+        fin = client.finalize_session(sid, result_format="ply")
+        ply = client.result(fin["job_id"])
+
+        bundle = os.path.join(shared, "diagnose.tar.gz")
+        t_diag = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = diagnose.main(["--probe", "--url", urls[survivor_idxs[0]],
+                                "-o", bundle, "--device", str(dev)])
+        out["diagnose_s"] = time.perf_counter() - t_diag
+        with tarfile.open(bundle) as tar:
+            names = set(tar.getnames())
+            probe = json.load(tar.extractfile("probe.json"))
+            manifest = json.load(tar.extractfile("MANIFEST.json"))
+        misses_end = {i: metric_of(c.metrics(),
+                                   "serve_program_cache_misses_total")
+                      for i, c in survivors.items()}
+        for i in survivor_idxs:
+            scrapes[f"r{i}"] = scrape(urls[i])
+        scrapes[f"r{victim} (replacement)"] = scrape(urls[victim])
+        stats, signals = router.stats(), router.signals()
+        # The router stops first: its detector would otherwise see the
+        # draining replicas die and try to move the (finalized) session.
+        rhttp.stop()
+        rhttp = None
+        rcs = {f"r{i}": r.stop() for i, r in reps.items()}
+        dup_ratio = (counters["dup_hits"] / counters["dup_submitted"]
+                     if counters["dup_submitted"] else None)
+        journals = {f"r{i}": read_live_state(reps[i].store)
+                    for i in range(FLEET_REPLICAS)}
+        handoff = SessionStreamStore(
+            os.path.join(shared, "handoff")).list_sessions()
+        checks = {
+            "no_client_errors": not errors,
+            "survivor_misses_flat": all(misses_end[i] == misses0[i]
+                                        for i in survivor_idxs),
+            "dup_ratio": (dup_ratio >= 0.6
+                          if counters["dup_submitted"] >= 10 else True),
+            "exit_0_on_sigterm": all(rc == 0 for rc in rcs.values()),
+            "journals_clean": all(not s.jobs and not s.sessions
+                                  for s in journals.values()),
+            "handoff_empty": handoff == [],
+            "burst_recovered": recovered >= 1
+            and recovered + gone == len(burst),
+            "ply_bit_equal_uninterrupted": ply == ref_ply,
+            "diagnose": rc == 0 and DIAGNOSE_MEMBERS <= names
+            and not manifest["errors"]}
+        out.update(
+            fleet_scans_per_s=counters["done"] / load_wall,
+            fleet_failover_s=failover_s,
+            fleet_proactive_repin_s=proactive_repin_s, load_s=load_wall,
+            counters=dict(counters), dup_hit_ratio=dup_ratio,
+            proactive_repins_before_first_op=repins_before_op,
+            recovered_burst_jobs=recovered, burst_finished_pre_kill=gone,
+            victim=f"r{victim}", adopter=f"r{adopter}",
+            survivor_program_cache_misses_delta={
+                f"r{i}": misses_end[i] - misses0[i] for i in survivor_idxs},
+            slowest_job=slowest, exit_codes=rcs, router=stats,
+            signals=signals, scrapes=scrapes, probe=probe,
+            bundle_members=sorted(names), checks=checks)
+        print(f"fleet: fleet_scans_per_s {out['fleet_scans_per_s']:.3f}, "
+              f"fleet_failover_s {failover_s:.3f}, fleet_proactive_repin_s "
+              f"{proactive_repin_s:.3f}; {counters} in {load_wall:.3f} s of "
+              f"load, dup ratio {dup_ratio}, {recovered} burst job(s) "
+              f"recovered, {gone} finished before the kill; slowest job "
+              f"{slowest}; the reference session {out['reference_s']:.3f} s, "
+              f"{FLEET_REPLICAS} replicas ready in "
+              f"{out['replicas_start_s']:.3f} s, the replacement in "
+              f"{out['replacement_start_s']:.3f} s, diagnose "
+              f"{out['diagnose_s']:.3f} s", flush=True)
+        print(f"fleet: router.stats() {json.dumps(stats)}", flush=True)
+        print(f"fleet: router.signals() {json.dumps(signals)}", flush=True)
+        print(f"fleet: scrapes {json.dumps(scrapes)}; diagnose probe "
+              f"{probe}; checks {checks}", flush=True)
+        if not all(checks.values()):
+            fail(f"fleet: {checks}")
+        return out
+    finally:
+        if rhttp is not None:
+            rhttp.stop()
+        for r in reps.values():
+            if r.proc.poll() is None:
+                r.proc.kill()
+                r.proc.wait(timeout=30.0)
+        shutil.rmtree(shared, ignore_errors=True)
+
+
+def fleet_path(dev) -> dict:
+    """Phase 8e: ``fleet_chaos`` on the card, then what only the card
+    shows: every replica's ``/metrics`` with ``decode_maps`` launches and
+    device bytes in use above 0 (the killed replica's last scrape before
+    its kill), and the diagnose probe's one ``decode_maps`` launch.
+    Returns the launches by kernel, summed over the replicas' scrapes
+    and the probe, and the numbers."""
+    out = fleet_chaos(dev)
+    bad = {name: s for name, s in out["scrapes"].items()
+           if s["launches"]["decode_maps"] <= 0
+           or not any(v > 0 for v in s["device_bytes_in_use"].values())}
+    if bad:
+        fail(f"fleet: replicas without decode_maps launches or device "
+             f"memory on the card: {bad}")
+    if out["probe"]["kernel_launches"] != {"decode_maps": 1} \
+            or not out["probe"]["device"].startswith("cuda"):
+        fail(f"fleet: the diagnose probe launched "
+             f"{out['probe']['kernel_launches']} on "
+             f"{out['probe']['device']}, not decode_maps once on the card")
+    launches = {k: sum(s["launches"][k] for s in out["scrapes"].values())
+                + out["probe"]["kernel_launches"].get(k, 0)
+                for k in out["scrapes"]["r0"]["launches"]}
+    print(f"fleet: launches by kernel over the replicas and the probe "
+          f"{launches}", flush=True)
+    return {"launches": launches, "numbers": out}
+
+class PhaseClock:
+    """Wall seconds of the run's phases: ``with clock("name"):`` prints
+    the phase's seconds when it ends; ``report()`` prints all of them and
+    the total since the clock was made, on one line."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t = time.perf_counter()
+        yield
+        self.seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {self.seconds[name]:.1f} s wall", flush=True)
+
+    def report(self) -> None:
+        total = time.perf_counter() - self.t0
+        print("phase seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in self.seconds.items())
+            + f"; total {total:.1f} s", flush=True)
+
+
 def main() -> int:
+    clock = PhaseClock()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and check the kernels only (no main path, "
@@ -4847,6 +5424,10 @@ def main() -> int:
                     help="build, render the ring's first 4 stops, then the "
                          "serve phase only (bench configs 7 and 9 and a "
                          "session; no result line)")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build, then the fleet phase only (bench config "
+                         "10: three replica processes behind the router; "
+                         "no result line)")
     ap.add_argument("--diagnose-determinism", action="store_true",
                     help="build, then run the 360° and mesh paths once "
                          "under torch.use_deterministic_algorithms(True, "
@@ -4873,14 +5454,16 @@ def main() -> int:
         build,
     )
 
-    t0 = time.perf_counter()
-    build.library()
-    print(f"kernels ready in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'} s)",
-          flush=True)
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    with clock("build"):
+        t0 = time.perf_counter()
+        build.library()
+        print(f"kernels ready in {time.perf_counter() - t0:.1f} s "
+              f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'} s)",
+              flush=True)
+        for line in build.build_log.splitlines():
+            if "registers" in line or "spill" in line \
+                    or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
 
     if args.diagnose_determinism:
         diagnose_determinism(dev)
@@ -4894,46 +5477,66 @@ def main() -> int:
     if args.serve_only:
         serve_path(dev, files_ring(dev, n_stops=4))
         return 0
-    band = sphere_band(dev)
-    kernels = [check_decode(dev), check_nearest_one(dev),
-               check_nearest_one_batched(dev), check_matvec(dev, band),
-               check_classify(dev, band), check_combine(dev),
-               check_brick_knn(dev), check_composite(dev)]
-    del band
+    if args.fleet_only:
+        with clock("fleet (8e)"):
+            fleet_path(dev)
+        clock.report()
+        return 0
+    with clock("kernel checks (3)"):
+        band = sphere_band(dev)
+        kernels = [check_decode(dev), check_nearest_one(dev),
+                   check_nearest_one_batched(dev), check_matvec(dev, band),
+                   check_classify(dev, band), check_combine(dev),
+                   check_brick_knn(dev), check_composite(dev)]
+        del band
     if args.kernels_only:
         return 0
-    launches, ring, ops = main_path(dev, N_STOPS, profile=args.profile)
-    path_kernel_timings(ops)
-    del ops
-    fused_launches, fused, sweeps = fused_path(dev, ring,
-                                               profile=args.profile)
-    launches["nearest_one_batched"] = fused_launches["nearest_one"]
-    kernels[2].update(path_nn_batched(sweeps))
-    del sweeps
-    stream_path_2b(dev, ring, fused)
-    gated_path(dev, ring)
-    del fused, ring["loop"]
-    launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
-    launches["composite_cells"], on_path = splat_path(dev, ring)
-    composite = kernels[-1]
-    on_path["max_abs_err"] = max(on_path["max_abs_err"],
-                                 composite["max_abs_err"])
-    composite.update(on_path)
-    launches["brick_knn_cells"] = cleanup_path(dev)
-    small_rig_agreement(dev)
-    band, corners, deep = deep_mesh_path(dev)
-    for k, on_band in zip(kernels[3:5], deep_kernel_timings(band, corners)):
-        k["deep_3d"] = on_band | {"launches": {
-            row: n[k["name"]] for row, n in deep.items()}}
-    kernels[6]["deep_3c"]["launches"] = {
-        row: n["brick_knn_cells"] for row, n in deep.items()}
-    del band, corners
-    # Last, so every profiler window above runs as it did before this phase
-    # was added (the profiler records fewer launches late in a long run).
-    files = files_path(dev, ring)
-    calib_launches = calibration_path(dev)
-    served = serve_path(dev, ring)
+    with clock("360 and mesh paths (4)"):
+        launches, ring, ops = main_path(dev, N_STOPS, profile=args.profile)
+        path_kernel_timings(ops)
+        del ops
+    with clock("fused, streamed and gated rings (4b-4d)"):
+        fused_launches, fused, sweeps = fused_path(dev, ring,
+                                                   profile=args.profile)
+        launches["nearest_one_batched"] = fused_launches["nearest_one"]
+        kernels[2].update(path_nn_batched(sweeps))
+        del sweeps
+        stream_path_2b(dev, ring, fused)
+        gated_path(dev, ring)
+        del fused, ring["loop"]
+    with clock("streaming (5)"):
+        launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
+    with clock("splat (5b)"):
+        launches["composite_cells"], on_path = splat_path(dev, ring)
+        composite = kernels[-1]
+        on_path["max_abs_err"] = max(on_path["max_abs_err"],
+                                     composite["max_abs_err"])
+        composite.update(on_path)
+    with clock("cleanup (6)"):
+        launches["brick_knn_cells"] = cleanup_path(dev)
+    with clock("small rig (7)"):
+        small_rig_agreement(dev)
+    with clock("deep mesh (8)"):
+        band, corners, deep = deep_mesh_path(dev)
+        for k, on_band in zip(kernels[3:5],
+                              deep_kernel_timings(band, corners)):
+            k["deep_3d"] = on_band | {"launches": {
+                row: n[k["name"]] for row, n in deep.items()}}
+        kernels[6]["deep_3c"]["launches"] = {
+            row: n["brick_knn_cells"] for row, n in deep.items()}
+        del band, corners
+    # Last, so every profiler window above runs as it did before these
+    # phases were added (the profiler records fewer launches late in a
+    # long run).
+    with clock("files (8b)"):
+        files = files_path(dev, ring)
+    with clock("calibration (8c)"):
+        calib_launches = calibration_path(dev)
+    with clock("serve (8d)"):
+        served = serve_path(dev, ring)
     del ring
+    with clock("fleet (8e)"):
+        fleet = fleet_path(dev)
     for k in kernels:
         name = k["name"].replace("_batched", "")
         k["launches"] = launches[k["name"]]
@@ -4943,9 +5546,11 @@ def main() -> int:
             "config7": served["config7"]["launches"][name],
             "session": served["config9"]["session"]["session_launches"][name],
             "render": served["config9"]["session"]["render_launches"][name]}
+        k["fleet"] = fleet["launches"][name]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "files",
-             "calibration", "serve")
+             "calibration", "serve", "fleet")
+    clock.report()
     print(json.dumps({"kernels": [
         {key: k[key] for key in order + tuple(
             d for d in ("deep_3c", "deep_3d") if d in k)}

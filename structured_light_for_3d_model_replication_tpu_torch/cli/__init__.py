@@ -13,13 +13,16 @@ PLY and a printable STL out — on the card.
 ``render``         novel-view PNGs from a splat scene (.npz) or a coloured
                    cloud
 ``serve``          the continuous-batching reconstruction service, one
-                   replica on one device (HTTP submit → PLY/STL, sessions)
+                   replica on one device (HTTP submit → PLY/STL, sessions),
+                   or with ``--router`` the fleet's front router
+``diagnose``       support bundle: health + metrics + flight journal +
+                   Perfetto spans + env manifest in one tarball
 ================  ===========================================================
 
 Every tool that computes takes ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path on the host). ``scan``, ``view``, ``diagnose`` and
-``lint`` are not ported yet: they exit with code 2 and name the ROADMAP
-step that brings them.
+the plain PyTorch path on the host). ``scan``, ``view`` and ``lint`` are
+not ported yet: they exit with code 2 and name the ROADMAP step that
+brings them.
 
 Invoke via ``python -m structured_light_for_3d_model_replication_tpu_torch.cli
 <tool> [args]``.
@@ -46,7 +49,6 @@ _TOOLS = {
 # Tools whose modules the port does not have yet, with the ROADMAP Queue 1
 # step that brings them.
 _NOT_PORTED = {
-    "diagnose": "step 4(b) (fleet, router, several cards, sharded tier)",
     "lint": "step 5 (host-only modules)",
     "scan": "step 5 (host-only modules)",
     "view": "step 5 (host-only modules)",

@@ -1,5 +1,6 @@
 """``serve``: the continuous-batching reconstruction service, one replica
-on one device (counterpart of the JAX package's ``cli/serve.py``).
+on one device, or the fleet's front router (counterpart of the JAX
+package's ``cli/serve.py``).
 
 Runs the `serve/` subsystem headless: bounded admission queue, bucketed
 continuous batcher, warmed program cache, device worker, and the HTTP
@@ -8,11 +9,12 @@ drain gracefully: in-flight jobs finish, new submissions get a retryable
 503, workers exit, then the listener closes. ``--device`` (default
 ``cuda``) picks the card; ``cpu`` serves with the plain PyTorch path.
 
-The fleet options — ``--router`` (and its ``--replicas``/``--router-*``/
-``--pin-store`` companions), ``--peers``, ``--handoff-dir``,
-``--shard-min-pixels`` and ``--devices`` above 1 — are parsed as the JAX
-tool parses them and exit with code 2: they come with ROADMAP Queue 1
-step 4(b).
+The fleet tier runs: ``--peers`` and ``--handoff-dir`` on a replica, and
+``--router`` (with ``--replicas``, ``--check-interval``, ``--router-id``,
+``--router-peers`` and ``--pin-store``) in front of replicas; the router
+never touches a device. ``--shard-min-pixels`` and ``--devices`` above 1
+are parsed as the JAX tool parses them and exit with code 2: they come
+with ROADMAP Queue 1 step 4(c).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import threading
 
 from ._args import add_device
 
-#: ROADMAP Queue 1 step that brings the fleet options.
-_FLEET_STEP = "step 4(b) (fleet, router, several cards, sharded tier)"
+#: ROADMAP Queue 1 step that brings the multi-card options.
+_MULTI_CARD_STEP = "step 4(c) (several cards and the sharded tier)"
 
 
 def _parse_buckets(spec: str) -> tuple:
@@ -206,18 +208,62 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _fleet_option(args) -> str | None:
-    """The first fleet option ``args`` asks for, or None."""
-    for flag, on in (("--router", args.router),
-                     ("--peers", bool(args.peers)),
-                     ("--handoff-dir", args.handoff_dir is not None),
-                     ("--shard-min-pixels",
+def _multi_card_option(args) -> str | None:
+    """The first multi-card option ``args`` asks for, or None."""
+    for flag, on in (("--shard-min-pixels",
                       args.shard_min_pixels is not None),
                      ("--devices", args.devices is not None
                       and args.devices > 1)):
         if on:
             return flag
     return None
+
+
+def _run_router(args) -> int:
+    """``serve --router``: the thin fleet front (serve/router.py). It
+    holds no reconstruction state and never touches a device; signals
+    stop it, and it prints ``router.stats()`` on exit."""
+    import json
+
+    from ..serve.fleet import transport_from_env
+    from ..serve.router import FleetRouter, RouterHTTPServer
+    from ..utils import log as log_mod
+
+    log_mod.configure()
+    replicas = [u.strip() for u in (args.replicas or "").split(",")
+                if u.strip()]
+    if not replicas:
+        print("error: --router requires --replicas url1,url2,...",
+              file=sys.stderr)
+        return 2
+    peers = [u.strip() for u in (args.router_peers or "").split(",")
+             if u.strip()]
+    router = FleetRouter(replicas,
+                         check_interval_s=args.check_interval,
+                         transport=transport_from_env(),
+                         router_id=args.router_id,
+                         router_peers=peers,
+                         pin_store=args.pin_store,
+                         proactive_repin=not args.no_proactive_repin)
+    http = RouterHTTPServer(router, host=args.host,
+                            port=args.port).start()
+    # Machine-parseable readiness line (fleet scripts grep it).
+    print(f"routing on :{http.port}", file=sys.stderr, flush=True)
+
+    stop = threading.Event()
+
+    def _graceful(signum, frame):
+        print(f"signal {signum}: router stopping...", file=sys.stderr,
+              flush=True)
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    stop.wait()
+    print(json.dumps(router.stats()), file=sys.stderr, flush=True)
+    http.stop()
+    print("router stopped", file=sys.stderr, flush=True)
+    return 0
 
 
 def _stream_params(base, spec: str | None):
@@ -242,10 +288,12 @@ def _stream_params(base, spec: str | None):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    flag = _fleet_option(args)
+    if args.router:
+        return _run_router(args)
+    flag = _multi_card_option(args)
     if flag is not None:
         print(f"serve {flag} is not ported yet: it comes with ROADMAP "
-              f"Queue 1 {_FLEET_STEP}", file=sys.stderr)
+              f"Queue 1 {_MULTI_CARD_STEP}", file=sys.stderr)
         return 2
 
     from ..config import ProjectorConfig
@@ -277,6 +325,10 @@ def main(argv=None) -> int:
     if args.recover and args.store_dir is None:
         print("error: --recover requires --store-dir (the journal "
               "volume to replay)", file=sys.stderr)
+        return 2
+    if args.handoff_dir is not None and args.store_dir is None:
+        print("error: --handoff-dir requires --store-dir (the handoff "
+              "stream rides the WAL's group commit)", file=sys.stderr)
         return 2
     import dataclasses
 
@@ -312,7 +364,10 @@ def main(argv=None) -> int:
         tenant_rate_per_s=args.tenant_rate,
         tenant_burst=args.tenant_burst,
         tenant_cost_weighted=args.tenant_cost_weighted,
-        replica_id=args.replica_id)
+        replica_id=args.replica_id,
+        peers=tuple(u.strip() for u in (args.peers or "").split(",")
+                    if u.strip()),
+        handoff_dir=args.handoff_dir)
 
     calib_provider = None
     if args.calib is not None:

@@ -29,7 +29,7 @@ shares with the JAX package (:mod:`.._native`, ``native/src/ball_pivot.cpp``:
 sequential front propagation, a host job); without that library it falls
 back, as the JAX package does, to the Poisson solve with a hard density
 trim. Not ported yet, raising an error that names the ROADMAP step that
-brings it: ``device_mesh`` (step 4).
+brings it: ``device_mesh`` (step 4(c)).
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ def mesh_from_cloud(
                          "(expected 'poisson', 'tsdf' or 'archival')")
     if device_mesh is not None:
         raise not_ported("the device_mesh sharded solve",
-                         "step 4 (serving and devices)")
+                         "step 4(c) (several cards)")
     dev = resolve_device(device)
     pts = np.asarray(cloud.points, np.float32)
     if pts.shape[0] < 16:

@@ -32,9 +32,11 @@ so one poisoned stack degrades that job, not the process.
 
 Entry points: ``python -m structured_light_for_3d_model_replication_tpu_torch.cli
 serve`` (front end), :class:`~.service.ReconstructionService` (in-process),
-:class:`~.client.ServeClient` (stdlib client). The fleet tier (``fleet.py``,
-``router.py``), several devices, the sharded tier and peer caches come with
-ROADMAP Queue 1 step 4(b).
+:class:`~.client.ServeClient` (stdlib client). The fleet tier runs:
+:class:`~.fleet.PeerCacheClient` (peers' content caches),
+:class:`~.router.FleetRouter` (consistent-hash admission, sticky sessions,
+handoff to a survivor) and ``cli serve --router``. Several devices and
+the sharded tier come with ROADMAP Queue 1 step 4(c).
 """
 
 from .batcher import Batch, BucketBatcher, BucketKey, bucket_for
@@ -51,6 +53,13 @@ from .blobstore import (
 )
 from .cache import ContentCache, ProgramCache, ProgramKey, content_key
 from .client import ServeClient, TransportError
+from .fleet import (
+    FaultyPeerTransport,
+    HashRing,
+    PeerCacheClient,
+    PeerFaultPlan,
+    PeerTransport,
+)
 from .governor import BreakerOpenError, CircuitBreaker, GovernorParams, \
     LoadShedError, OverloadGovernor
 from .jobs import (
@@ -63,6 +72,7 @@ from .jobs import (
     StackFormatError,
 )
 from .lanes import DeviceLane, DeviceLanePool
+from .router import FleetRouter, PinBoard, RouterHTTPServer
 from .service import ReconstructionService, ServeConfig, ServeHTTPServer
 from .sessions import SessionLimitError, SessionManager, UnknownSessionError
 from .store import JournalStore, RecoveredState, SessionStreamStore, \
@@ -86,24 +96,32 @@ __all__ = [
     "LocalDirStore",
     "ObjectStore",
     "ObjectStoreServer",
+    "PinBoard",
     "TenantQuotaError",
     "TenantQuotas",
     "open_blob_store",
     "DeviceLane",
     "DeviceLanePool",
     "DeviceWorker",
+    "FaultyPeerTransport",
+    "FleetRouter",
     "GovernorParams",
+    "HashRing",
     "Job",
     "JobRejected",
     "JournalStore",
     "LoadShedError",
     "OverloadGovernor",
+    "PeerCacheClient",
+    "PeerFaultPlan",
+    "PeerTransport",
     "ProgramCache",
     "ProgramKey",
     "QueueClosedError",
     "QueueFullError",
     "ReconstructionService",
     "RecoveredState",
+    "RouterHTTPServer",
     "ServeClient",
     "ServeConfig",
     "ServeError",

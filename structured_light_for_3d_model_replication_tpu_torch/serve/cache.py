@@ -63,7 +63,7 @@ class ProgramKey:
     ``device`` pins the program to one card (a `lanes.DeviceLane` label
     like ``"cuda:0"``); ``None`` is the cache's own device. ``shards`` and
     ``span`` name the JAX package's sharded cross-chip tier, which the
-    port does not run yet: such keys raise (ROADMAP Queue 1 step 4(b)).
+    port does not run yet: such keys raise (ROADMAP Queue 1 step 4(c)).
     """
 
     bucket: BucketKey
@@ -182,7 +182,7 @@ class ProgramCache:
         cache's own for an un-pinned key."""
         if key.shards or key.span:
             raise not_ported("the sharded cross-chip serve tier",
-                             "step 4(b)")
+                             "step 4(c)")
         if key.device is None:
             return self.device
         return label_device(key.device)

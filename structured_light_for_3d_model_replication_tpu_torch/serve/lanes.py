@@ -18,7 +18,7 @@ visible as ``serve_lane_state{device=}``. A dead transition fires the
 service's ``on_device_dead`` hook and sticky sessions re-pin to surviving
 lanes. The sharded cross-chip tier and its span bookkeeping are kept as
 the JAX package has them, but a sharded route raises: it comes with ROADMAP
-Queue 1 step 4(b), as does a service over more than one card.
+Queue 1 step 4(c), as does a service over more than one card.
 
 The pool is pure bookkeeping — no threads, no device I/O.
 """
@@ -579,7 +579,7 @@ class DeviceLanePool:
         span = self.span_for(key)
         if span:
             raise not_ported("the sharded cross-chip serve tier",
-                             "step 4(b)")
+                             "step 4(c)")
         device = (lane.label if lane is not None and self.multi_device
                   else None)
         return ProgramKey(bucket=key, batch=batch, device=device)
@@ -587,14 +587,14 @@ class DeviceLanePool:
     def span_jax_devices(self, span) -> list:
         """The devices behind a sharded span: the sharded tier is not
         ported yet."""
-        raise not_ported("the sharded cross-chip serve tier", "step 4(b)")
+        raise not_ported("the sharded cross-chip serve tier", "step 4(c)")
 
     def solve_mesh(self, key: BucketKey):
         """The device mesh a sharded bucket's postprocess solves over —
         None for lane-pinned buckets; a sharded one is not ported yet."""
         if not self.span_for(key):
             return None
-        raise not_ported("the sharded cross-chip serve tier", "step 4(b)")
+        raise not_ported("the sharded cross-chip serve tier", "step 4(c)")
 
     # -- sticky sessions ----------------------------------------------
 

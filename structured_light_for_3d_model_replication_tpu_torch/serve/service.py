@@ -28,10 +28,12 @@ service object, so in-process callers (tests, bench) and HTTP clients see
 identical semantics.
 
 The service runs on ``ServeConfig.device`` (None means the card, and a
-host without one raises; the CPU serves only when asked for). What the
-JAX package runs across replicas or cards — peer caches, the session
-handoff volume, more than one device, the sharded tier — raises
-``NotImplementedError`` here: it comes with ROADMAP Queue 1 step 4(b).
+host without one raises; the CPU serves only when asked for). The fleet
+tier runs: peers' content caches (``peers``, serve/fleet.py) and the
+session handoff volume (``handoff_dir``) behind the router
+(serve/router.py). What the JAX package runs across cards — more than one
+device, the sharded tier — raises ``NotImplementedError`` here: it comes
+with ROADMAP Queue 1 step 4(c).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ..utils import events, telemetry, trace
 from ..utils.log import get_logger
 from .batcher import BucketBatcher, BucketKey
 from .cache import ContentCache, ProgramCache, content_key
+from .fleet import PeerCacheClient
 from .governor import GovernorParams, OverloadGovernor
 from .jobs import (
     DONE,
@@ -106,7 +109,7 @@ class ServeConfig:
     # Device dimension (serve/lanes.py): worker lanes spread round-robin
     # over up to this many local cards (None = all visible). Lanes on
     # more than one card, and the sharded big-bucket tier
-    # (shard_min_pixels), come with ROADMAP Queue 1 step 4(b) and raise.
+    # (shard_min_pixels), come with ROADMAP Queue 1 step 4(c) and raise.
     devices: int | None = None
     shard_min_pixels: int | None = None
     shard_devices: int = 0
@@ -258,7 +261,7 @@ class ReconstructionService:
                  tracer: "trace.Tracer | None" = None):
         self.config = config
         self.device = resolve_device(config.device)
-        self._refuse_fleet_options(config)
+        self._refuse_multi_card_options(config)
         # Fresh registry per service by default: parallel services (tests,
         # bench sweeps) must not sum each other's counters. Pass
         # trace.REGISTRY explicitly to meter into the process-global one.
@@ -300,9 +303,16 @@ class ReconstructionService:
                               if self.store is not None else None),
                          registry=self.registry)
             if config.content_cache else None)
-        # Peer half of the shared content cache: the fleet tier
-        # (``config.peers`` is refused above), so always None here.
-        self.peer_cache = None
+        # Peer half of the shared content cache (serve/fleet.py):
+        # consulted at admission after a local miss; every degraded mode
+        # converges on "compute locally", never a stall.
+        self.peer_cache: PeerCacheClient | None = (
+            PeerCacheClient(config.peers,
+                            timeout_s=config.peer_timeout_s,
+                            budget_s=config.peer_budget_s,
+                            negative_ttl_s=config.peer_negative_ttl_s,
+                            registry=self.registry)
+            if (config.peers and config.content_cache) else None)
         # Constructed here (its counter families must exist in the
         # registry from the first scrape) but installed into the compile-
         # event dispatch only for the start→drain window, so an abandoned
@@ -335,7 +345,7 @@ class ReconstructionService:
         if self.lanes.multi_device:
             raise not_ported("serving across more than one device "
                              f"({len(self.lanes.distinct_devices())} "
-                             "lanes' cards)", "step 4(b)")
+                             "lanes' cards)", "step 4(c)")
         self.lanes.on_device_dead = self._on_device_dead
         # Sharded-fault attribution (docs/ROBUSTNESS.md § probe-
         # convict): N consecutive faults on one sharded span fire this
@@ -401,21 +411,16 @@ class ReconstructionService:
             device=self.lanes.lane(0).device)
 
     @staticmethod
-    def _refuse_fleet_options(config: ServeConfig) -> None:
-        """What a single replica on one device does not run yet raises
-        (the fleet tier, several cards and the sharded tier come with
-        ROADMAP Queue 1 step 4(b))."""
-        for name, on in (("peers (the fleet's shared content cache)",
-                          bool(config.peers)),
-                         ("handoff_dir (the fleet's session handoff)",
-                          config.handoff_dir is not None),
-                         ("shard_min_pixels (the sharded cross-chip tier)",
+    def _refuse_multi_card_options(config: ServeConfig) -> None:
+        """What a replica on one device does not run yet raises (several
+        cards and the sharded tier come with ROADMAP Queue 1 step 4(c))."""
+        for name, on in (("shard_min_pixels (the sharded cross-chip tier)",
                           config.shard_min_pixels is not None),
                          ("devices > 1 (more than one card)",
                           config.devices is not None
                           and config.devices > 1)):
             if on:
-                raise not_ported(f"ServeConfig.{name}", "step 4(b)")
+                raise not_ported(f"ServeConfig.{name}", "step 4(c)")
 
     def _make_worker(self, name: str, lane) -> DeviceWorker:
         return DeviceWorker(self.batcher, self.cache,
@@ -1122,9 +1127,11 @@ class ReconstructionService:
         f, h, w = stack.shape
         batch[0, :f, :h, :w] = stack
         out = compiled(self.cache.stage(pkey, batch), calib)
-        points = np.asarray(out.points)[0]
-        colors = np.asarray(out.colors)[0]
-        valid = np.asarray(out.valid)[0]
+        # The worker's one readback of the batch result (a card's tensors
+        # reach numpy only through the host).
+        points = out.points.cpu().numpy()[0]
+        colors = out.colors.cpu().numpy()[0]
+        valid = out.valid.cpu().numpy()[0]
         vgrid = valid.reshape(key.height, key.width)[:h, :w]
         entry.ingest(points, colors, valid, coverage=float(vgrid.mean()),
                      frame_shape=(key.height, key.width))
@@ -1891,6 +1898,7 @@ class ReconstructionService:
         self._queue_gauge.set(self.queue.depth())
         if self.telemetry is not None:
             self.telemetry.sample_memory()  # refresh device gauges
+            self.telemetry.sample_kernel_launches()
         self._sync_event_counters()
         return self.registry.prometheus_text(tracer=self.tracer)
 

@@ -133,12 +133,12 @@ class ServeSession:
         """Move the session's sticky lane — the device-loss re-pin and
         the revival rebalance (serve/lanes.py) share this path. The
         session's state lives on its device; moving it to another card
-        comes with the multi-card service (ROADMAP Queue 1 step 4(b)),
+        comes with the multi-card service (ROADMAP Queue 1 step 4(c)),
         so a lane on another device raises."""
         with self.lock:
             if lane is not None and lane.device != self.device:
                 raise not_ported("re-pinning a session to another card",
-                                 "step 4(b)")
+                                 "step 4(c)")
             if lane is not self.lane:
                 self.lane_moves += 1
             self.lane = lane

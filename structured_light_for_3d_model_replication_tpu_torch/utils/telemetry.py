@@ -22,6 +22,15 @@ metric:
   ``total_memory`` as its limit; a host without a card reports ``cpu:0``
   with no stats and the gauges stay absent.
 
+* :meth:`DeviceTelemetry.sample_kernel_launches` — the port's own hand-
+  written kernels: every wrapper counts the launches of its kernel on the
+  card (``<wrapper>.launches``; a CPU tensor takes the plain version and
+  counts nothing), and each scrape folds the growth since the last one
+  (or since the telemetry was made) into
+  ``serve_kernel_launches_total{kernel=...}``. A replica is its own
+  process, so its ``/metrics`` is how a fleet shows that the replica ran
+  its kernels on the card.
+
 One process-level fan-out dispatches to every installed
 :class:`DeviceTelemetry`, so tests can install a telemetry against a
 private registry and uninstall it without disturbing the process-global
@@ -39,6 +48,33 @@ from . import trace
 from .log import get_logger
 
 log = get_logger(__name__)
+
+#: The port's kernels by name: (module under the package, wrapper).
+KERNELS = {"decode_maps": ("ops.decode", "decode_maps"),
+           "nearest_one": ("ops.nn", "nearest_one"),
+           "matvec_band": ("ops.poisson_matvec", "matvec_band"),
+           "classify_bricks": ("ops.marching_classify", "classify_bricks"),
+           "tsdf_combine": ("ops.tsdf_combine", "tsdf_combine"),
+           "brick_knn_cells": ("ops.brickknn_kernel", "brick_knn_cells"),
+           "composite_cells": ("ops.splat_composite", "composite")}
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper, by kernel name (imports the wrappers, never
+    their bindings); each counts its launches in ``.launches``."""
+    import importlib
+
+    root = __name__.rsplit(".", 2)[0]
+    return {name: getattr(importlib.import_module(f"{root}.{mod}"), attr)
+            for name, (mod, attr) in KERNELS.items()}
+
+
+def kernel_launches() -> dict[str, int]:
+    """Every kernel wrapper's launch count in this process, by kernel
+    name."""
+    return {name: int(fn.launches)
+            for name, fn in kernel_wrappers().items()}
+
 
 # Fan-out: every installed telemetry hears every program build.
 _DISPATCH_LOCK = threading.Lock()
@@ -78,6 +114,15 @@ class DeviceTelemetry:
         self._storms = self.registry.counter(
             "sl_recompile_storms_total",
             "compile bursts above the storm threshold")
+        self._launches = {
+            k: self.registry.counter(
+                "serve_kernel_launches_total",
+                "launches of the port's hand-written kernels on the card",
+                kernel=k)
+            for k in KERNELS}
+        # Launches made before this telemetry are not its service's: the
+        # counters start from the wrappers' counts now.
+        self._launches_seen: dict[str, int] = kernel_launches()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -179,6 +224,21 @@ class DeviceTelemetry:
                 worst = max(worst, float(in_use) / float(limit))
         return min(1.0, worst)
 
+    # -- kernel launches ---------------------------------------------------
+
+    def sample_kernel_launches(self) -> dict[str, int]:
+        """Fold the wrappers' launch counts into
+        ``serve_kernel_launches_total``: the growth since the last sample
+        (a wrapper count that went down was zeroed by its caller, and all
+        of its new value is growth). Returns the wrappers' counts."""
+        now = kernel_launches()
+        with self._lock:
+            for k, n in now.items():
+                last = self._launches_seen.get(k, 0)
+                self._launches[k].inc(n - last if n >= last else n)
+                self._launches_seen[k] = n
+        return now
+
     # -- snapshots ---------------------------------------------------------
 
     def snapshot(self) -> dict:
@@ -188,6 +248,7 @@ class DeviceTelemetry:
             "compile_seconds": self._compile_s.snapshot(),
             "recompile_storms": int(self._storms.value),
             "device_memory": self.sample_memory(),
+            "kernel_launches": self.sample_kernel_launches(),
         }
 
 

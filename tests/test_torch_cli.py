@@ -140,13 +140,14 @@ def test_dispatcher_help_and_unknown(capsys):
 
 @pytest.mark.parametrize("tool,step", [
     ("scan", "step 5"), ("view", "step 5"), ("lint", "step 5"),
-    ("serve", "step 4"), ("diagnose", "step 4")])
+    ("serve", "step 4")])
 def test_unported_tool_exits_2_naming_its_step(tool, step, capsys):
     """A tool whose modules the port lacks exits 2 and names its ROADMAP
     step, without importing a module to find out; ``serve`` is ported, and
-    its fleet front (``--router``) exits 2 naming step 4(b)."""
-    flag = "--router" if tool == "serve" else "--help"
-    assert cli.main([tool, flag]) == 2
+    its multi-card option (``--devices 2``) exits 2 naming step 4(c).
+    ``diagnose`` is ported (tests/test_torch_diagnose.py)."""
+    flags = ["--devices", "2"] if tool == "serve" else ["--help"]
+    assert cli.main([tool, *flags]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and step in err
 

@@ -72,7 +72,8 @@ def test_every_port_module_imports_without_jax():
                  "serve.batcher", "serve.governor", "serve.tenants",
                  "serve.blobstore", "serve.store", "serve.client",
                  "serve.cache", "serve.worker", "serve.lanes",
-                 "serve.sessions", "serve.service"):
+                 "serve.sessions", "serve.service", "serve.fleet",
+                 "serve.router", "cli.diagnose"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -96,6 +97,8 @@ def test_entry_modules_do_not_load_kernel_bindings():
         from {PORT}.models import realism
         from {PORT} import calibration, serve
         from {PORT}.cli import serve as cli_serve
+        from {PORT}.cli import diagnose
+        from {PORT}.serve import fleet, router
         from {PORT}.hw import faults
         from {PORT}.stream import warmup
         from {PORT}.utils import events, log, sanitize, telemetry, trace
@@ -293,3 +296,29 @@ def test_serve_and_calibration_entry_points_raise_without_cuda(monkeypatch):
         np.zeros((proj.n_frames, 4, 4), np.uint8), corners, proj,
         device="cpu")
     assert uv.shape == (4, 2) and uv.dtype == np.float32
+
+
+def test_fleet_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """A fleet replica (``cli serve`` with ``--peers`` and
+    ``--handoff-dir``) defaults to the card and raises without one; the
+    router runs no device code, so it starts and stops without a card."""
+    from structured_light_for_3d_model_replication_tpu_torch.cli import (
+        serve as cli_serve,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        FleetRouter,
+        RouterHTTPServer,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_serve.main(["--port", "0", "--no-warmup", "--store-dir",
+                        str(tmp_path / "s"), "--handoff-dir",
+                        str(tmp_path / "h"), "--peers",
+                        "http://127.0.0.1:1"])
+    router = FleetRouter(["http://127.0.0.1:1"], check_interval_s=999.0)
+    http = RouterHTTPServer(router, port=0).start()
+    try:
+        assert router.ready_replicas() == []
+    finally:
+        http.stop()

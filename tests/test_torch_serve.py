@@ -301,28 +301,85 @@ def test_program_cache_lru_and_pinned_placement():
                                     shards=2))
 
 
-def test_service_needs_a_card_and_refuses_fleet_options(monkeypatch):
+def test_service_needs_a_card_and_refuses_fleet_options(monkeypatch,
+                                                        tmp_path):
     """No fallback: the default device is the card, and without one the
-    service raises; what the fleet tier runs raises NotImplementedError."""
+    service raises. The fleet tier's options now start a replica (its
+    peer cache built, its handoff stream open); what runs across cards
+    raises NotImplementedError naming step 4(c)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ReconstructionService(ServeConfig(proj=PROJ, buckets=((H, W),)))
-    for bad in (dict(peers=("http://127.0.0.1:1",)),
-                dict(handoff_dir="/nonexistent", store_dir="/nonexistent"),
-                dict(shard_min_pixels=1), dict(devices=2)):
-        with pytest.raises(NotImplementedError, match="step 4"):
+    peered = ReconstructionService(_config(
+        ServeConfig, PROJ, content_cache=True,
+        peers=("http://127.0.0.1:1",)))
+    assert peered.peer_cache.peer_urls == ["http://127.0.0.1:1"]
+    handoff = ReconstructionService(_config(
+        ServeConfig, PROJ, handoff_dir=str(tmp_path / "handoff"),
+        store_dir=str(tmp_path / "store"), warmup=False)).start()
+    try:
+        assert handoff.handoff is not None
+        assert handoff.handoff.list_sessions() == []
+    finally:
+        assert handoff.drain(timeout=WAIT_S)
+    for bad in (dict(shard_min_pixels=1), dict(devices=2)):
+        with pytest.raises(NotImplementedError, match=r"step 4\(c\)"):
             ReconstructionService(_config(ServeConfig, PROJ, **bad))
 
 
-def test_cli_serve_fleet_options_exit_2(capsys):
+def test_cli_serve_fleet_options_exit_2(capsys, tmp_path):
+    """``--router`` without ``--replicas`` and ``--handoff-dir`` without
+    ``--store-dir`` exit 2 as the JAX tool does; a replica with
+    ``--peers`` and ``--handoff-dir`` starts (tests/test_torch_router.py
+    runs the router itself); the multi-card options exit 2 naming step
+    4(c)."""
+    import subprocess
+    import sys
+
     from structured_light_for_3d_model_replication_tpu_torch.cli import (
         serve as cli_serve,
     )
 
-    for argv in (["--router"], ["--peers", "http://127.0.0.1:1"],
-                 ["--shard-min-pixels", "1"], ["--devices", "2"]):
+    assert cli_serve.main(["--router"]) == 2
+    assert "--router requires --replicas" in capsys.readouterr().err
+    assert cli_serve.main(["--handoff-dir", str(tmp_path / "h"),
+                           "--device", "cpu"]) == 2
+    assert "requires --store-dir" in capsys.readouterr().err
+    for argv in (["--shard-min-pixels", "1"], ["--devices", "2"]):
         assert cli_serve.main(argv + ["--device", "cpu"]) == 2
-        assert "step 4(b)" in capsys.readouterr().err
+        assert "step 4(c)" in capsys.readouterr().err
     args = cli_serve.build_parser().parse_args([])
     assert args.device == "cuda" and args.queue_depth == \
         ServeConfig().queue_depth
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "structured_light_for_3d_model_replication_tpu_torch.cli", "serve",
+         "--device", "cpu", "--port", "0", "--proj-width", "64",
+         "--proj-height", "32", "--buckets", f"{H}x{W}", "--batch-sizes",
+         "1", "--no-warmup", "--store-dir", str(tmp_path / "store"),
+         "--handoff-dir", str(tmp_path / "handoff"), "--peers",
+         "http://127.0.0.1:1", "--replica-id", "r-cli"],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        stderr=subprocess.PIPE, text=True)
+    try:
+        lines, up = [], threading.Event()
+
+        def pump():
+            for line in proc.stderr:
+                lines.append(line)
+                if "serving on :" in line:
+                    up.set()
+            up.set()
+
+        threading.Thread(target=pump, daemon=True).start()
+        assert up.wait(WAIT_S) and lines and "serving on :" in lines[-1], \
+            "".join(lines[-20:])
+        port = int(lines[-1].rsplit(":", 1)[1])
+        health = ServeClient(f"http://127.0.0.1:{port}",
+                             timeout_s=WAIT_S).healthz()
+        assert health["replica_id"] == "r-cli"
+        proc.terminate()
+        assert proc.wait(timeout=WAIT_S) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
