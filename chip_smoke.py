@@ -3,7 +3,8 @@
 ``structured_light_for_3d_model_replication_tpu_torch``, from stacks to the
 merged 360° cloud and on to the printable STL, through the streaming
 session and its splat appearance tier (rendered novel views), through
-the cleanup path of a single capture, the command-line tools, the
+the cleanup path of a single capture, the command-line tools on a session
+captured by the virtual rig, the capture loop and the viewer, the
 calibration, one serving replica and a fleet of three behind the router,
 with its CUDA kernels.
 
@@ -13,6 +14,7 @@ with its CUDA kernels.
     python3 chip_smoke.py --files-only     # build + the files phase only
     python3 chip_smoke.py --serve-only     # build + the serve phase only
     python3 chip_smoke.py --fleet-only     # build + the fleet phase only
+    python3 chip_smoke.py --capture-only   # build + the capture loop (8f)
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -90,7 +92,8 @@ Phases, in order; any failure exits non-zero before the result line:
    of the bump scene with the rig's wall at z = 700: reconstruct → PLY
    written and read back → ``remove_background`` → ``remove_outliers`` →
    ``reconstruct_stl`` at depth 10, with the brick KNN kernel launched by
-   the outlier removal and by the normals of the cleaned cloud;
+   the outlier removal and by the normals of the cleaned cloud, then held
+   to its plain version on those two inputs and timed there;
 7. the whole path on the tests' small 4-stop rig, scan and depth-9 mesh, a
    4-stop TSDF session, a 4-stop splat session, the ring with the brick
    FPFH and the cleanup path of one walled stop, on the card and on the
@@ -110,10 +113,11 @@ Phases, in order; any failure exits non-zero before the result line:
    a fine matvecs a preconditioner application; then ``matvec_band`` and
    ``classify_bricks`` on 3d's band against their plain versions, timed
    there (``--deep-only``: build and this phase, no result line);
-8b. the files phase: the 24-stop ring written by the port's ``write_frame``
-   as the reference's auto-scan session (``obj_15deg_AUTO/
+8b. the files phase: the 24-stop ring captured by phase 8f (a)'s virtual
+   auto-scan as the reference's auto-scan session (``obj_15deg_AUTO/
    obj_<angle>deg_scan/01.png … 46.png``, PNG) with its ``.mat``
-   calibration, read back bit for bit, then the port's command-line tools
+   calibration, read back bit for bit equal to the rendered ring (the
+   proof that the capture is), then the port's command-line tools
    driven in this process (``cli.main``) with every launch counter zeroed
    before and read after each tool: ``scan-360`` → a merged PLY that must
    equal, bit for bit, ``scan_stacks_to_cloud`` in this process on the
@@ -129,8 +133,8 @@ Phases, in order; any failure exits non-zero before the result line:
    (the TSDF combine and its preview STL); ``render`` of the merged cloud
    (the composite); ``read-calib``; and the photoreal JPEG fixture
    (``tests/fixtures/realistic_stack``) through ``process-cloud``, held to
-   tests/test_realistic_capture.py's bounds. Every kernel must launch in
-   this phase;
+   tests/test_realistic_capture.py's bounds; then phase 8f (e)'s ``cli
+   view``. Every kernel must launch in this phase;
 8c. calibration at the ring's rig: six checkerboard poses at 1080p
    (rendered at 2× supersampling) written as the reference's calibration
    session; the corner decode through ``decode_maps`` (one launch a pose,
@@ -144,7 +148,7 @@ Phases, in order; any failure exits non-zero before the result line:
    HTTP loopback, concurrency 1/4/16, every PLY bit-equal to the
    in-process ``reconstruct``, 3 misses, occupancy ≥ 2 at c = 16,
    ``decode_maps`` once a batch), then bench config 9 (``bench.py:
-   2010-2301``) with a 60 s soak against the bench's 180 s and all its
+   2010-2301``) with a 30 s soak against the bench's 180 s and all its
    assertions, and through its recovered service a 4-stop ``"tsdf"``
    session over HTTP whose STL must equal the in-process session's bit
    for bit and a splat-lane session's rendered PNG;
@@ -153,8 +157,8 @@ Phases, in order; any failure exits non-zero before the result line:
    port's ``cli serve --device cuda`` on the soak/fleet smokes' tiny rig
    (each with its own journal, a shared handoff directory, the others as
    peers), loading the kernel library this process built, behind an
-   in-process ``FleetRouter``; 30 s of load (the bench's 60, cut to keep
-   the run inside its time limit) from two threads, a session
+   in-process ``FleetRouter``; 60 s of load (the bench's) from two
+   threads, its rate also over the jobs done before the kill, a session
    pinned with 2 stops, a burst at the pinned replica, its SIGKILL, the
    proactive re-pin with no client op, a replacement with ``--recover``,
    stop 4 and the PLY finalize; every assertion of the bench's config 10,
@@ -164,13 +168,39 @@ Phases, in order; any failure exits non-zero before the result line:
    memory above 0, and ``cli diagnose --probe --url <survivor>`` in this
    process writing the JAX package's members with one ``decode_maps``
    launch;
+8f. the capture loop (``--capture-only``: build, the ring's render,
+   (b)-(d), then the files phase with (a) and (e)), each part with its
+   seconds: (a) inside the files phase, a ``VirtualRig`` at the ring's
+   rig driven by the port's ``Scanner`` through a ``FlakyCamera`` —
+   ``auto_scan_360`` of 24 stops × 15° at 1080p, sequential, with
+   transient timeouts on stops 3, 9, 14 and 20 and a truncated upload on
+   stop 11, its health report exactly those faults with one retry each,
+   its frames per second printed; the session it writes replaces the
+   rendered frames the files phase used to write; (b) tests/
+   test_chaos.py's hard-failure ring on the card at the tests' 96×160
+   rig (hard failures on stops 6 and 17): the gated merge of the 22
+   survivors bridges exactly (7, 5) and (18, 16), within the JAX test's
+   bounds of the clean ungated run, and meshes at depth 5; (c) the
+   phone's pull-mode transport: a ``CommandServer`` on loopback, a
+   ``PullCamera`` and a client thread replaying the reference front
+   end's poll → capture → upload loop with the rig's PNG, one stop at
+   1080p bit-equal to the ring's stop 0; (d) ``cli scan auto360
+   --virtual --turns 4 --degrees 90 --health-json`` in this process, then
+   again: every stop resumed, no frame rewritten; (e) inside the files
+   phase, ``cli view --device cuda`` on its outputs (the merged PLY plain
+   and ``--plane``, stop 0 ``--outliers`` — the brick kernel — stop 0
+   ``--compare`` stop 1 with ``--icp`` and the cleanup's depth-10 STL),
+   each PNG non-empty, the outlier mask equal to the same
+   sweep's on the host by the kernel's plain version, and the tool's PNG
+   to the host mask's render;
 9. each phase's wall seconds and the total on one line, a ``kernels`` JSON
    line (``matvec_band`` and ``classify_bricks`` also carry their numbers
    on 3d's band and each deep row's launches under ``deep_3d``; every
    kernel its launches by tool in the files phase under ``files``, in the
    calibration phase under ``calibration``, in the serve phase under
-   ``serve`` and over the fleet's replicas and the diagnose probe under
-   ``fleet``), the card line again, and last the result line
+   ``serve``, over the fleet's replicas and the diagnose probe under
+   ``fleet``, and by part and view mode of phase 8f under ``capture``),
+   the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; without one it exits non-zero and prints no result. The
@@ -2902,7 +2932,8 @@ def tool_counters():
 
 def run_tool(dev, label: str, argv: list[str], quiet: bool = False):
     """``cli.main(argv)`` in this process, with ``--device`` set to ``dev``
-    unless ``argv`` names one (``read-calib`` takes none), every kernel
+    unless ``argv`` names one (``read-calib`` and ``scan`` take none),
+    every kernel
     counter zeroed just before and read just after; fails unless it
     returns 0. Returns (wall seconds, launches by kernel, the tool's
     standard output)."""
@@ -2910,7 +2941,7 @@ def run_tool(dev, label: str, argv: list[str], quiet: bool = False):
 
     from structured_light_for_3d_model_replication_tpu_torch import cli
 
-    if argv[0] != "read-calib" and "--device" not in argv:
+    if argv[0] not in ("read-calib", "scan") and "--device" not in argv:
         argv = [*argv, "--device", str(dev)]
     counters = tool_counters()
     _sync(dev)
@@ -2932,27 +2963,16 @@ def run_tool(dev, label: str, argv: list[str], quiet: bool = False):
 
 
 def write_session(ring, root: str):
-    """The ring's stacks as the reference's auto-scan layout,
-    ``<root>/obj_15deg_AUTO/obj_<angle>deg_scan/01.png …``, written by the
-    port's ``write_frame`` (frames in parallel), and its calibration by
-    ``save_calibration_mat``. Returns (session folder, calibration path)."""
+    """The ring's calibration by ``save_calibration_mat`` into the
+    reference's session layout under ``root``; the frames beside it come
+    from the virtual auto-scan (``capture_session``). Returns (session
+    folder, calibration path)."""
     from structured_light_for_3d_model_replication_tpu_torch.io import (
-        images,
         layout,
         matcal,
     )
 
     lay = layout.SessionLayout(root).ensure()
-    stacks = ring["stacks"]
-    jobs = []
-    for k in range(stacks.shape[0]):
-        d = lay.stop_dir("obj", STEP_DEG, k * STEP_DEG)
-        os.makedirs(d)
-        jobs += [(os.path.join(d, layout.frame_name(f + 1, FRAME_EXT)), k, f)
-                 for f in range(stacks.shape[1])]
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-        list(ex.map(lambda j: images.write_frame(j[0], stacks[j[1], j[2]]),
-                    jobs))
     matcal.save_calibration_mat(lay.calib_mat, ring["calib"])
     return lay.auto_session_dir("obj", STEP_DEG), lay.calib_mat
 
@@ -3091,19 +3111,23 @@ def files_ring(dev, n_stops: int = N_STOPS):
         scene=scene)
 
 
-def files_path(dev, ring) -> dict:
+def files_path(dev, ring) -> tuple[dict, dict]:
     """The file-level flow through the port's command-line tools, in this
     process (``cli.main``) so the launch counters can be read: the 24-stop
-    ring written as the reference's auto-scan session and read back bit for
-    bit; ``scan-360`` → merged PLY, equal bit for bit to the in-process
-    ``scan_stacks_to_cloud`` on the same stacks with the ``Scan360Params``
-    the tool builds; ``scan-360 --fused``; ``mesh --depth 10`` (> 10⁴
-    faces, ≤ 1 mm median from the spheres); ``process-cloud`` of one stop
+    ring captured by the virtual auto-scan (``capture_session``, phase 8f
+    (a)) as the reference's auto-scan session and read back bit for bit
+    equal to the rendered ring; ``scan-360`` → merged PLY, equal bit for
+    bit to the in-process ``scan_stacks_to_cloud`` on the same stacks with
+    the ``Scan360Params`` the tool builds; ``scan-360 --fused``; ``mesh
+    --depth 10`` (> 10⁴ faces, ≤ 1 mm median from the spheres);
+    ``process-cloud`` of one stop
     then ``mesh --remove-background --remove-outliers`` (the brick kernel);
     ``mesh --mode surface --orientation tangent`` on the card and the host;
     ``scan-360 --stream`` (the TSDF combine); ``render`` (the composite);
-    ``read-calib``; the JPEG fixture through ``process-cloud``. Returns
-    {kernel: {tool: launches}}."""
+    ``read-calib``; the JPEG fixture through ``process-cloud``; then ``cli
+    view`` (``view_modes``, phase 8f (e)). Returns ({kernel: {tool:
+    launches}}, the capture's numbers with the views' launches under
+    ``"views"``)."""
     import tempfile
 
     from structured_light_for_3d_model_replication_tpu_torch.cli import (
@@ -3133,9 +3157,9 @@ def files_path(dev, ring) -> dict:
                 tally.setdefault(k, {})[tool] = v
 
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        sess, mat = write_session(ring, os.path.join(tmp, "session"))
-        write_s = time.perf_counter() - t0
+        root = os.path.join(tmp, "session")
+        captured = capture_session(dev, ring, root)
+        sess, mat = write_session(ring, root)
         size = sum(os.path.getsize(os.path.join(d, f))
                    for d, _, fs in os.walk(sess) for f in fs)
         t0 = time.perf_counter()
@@ -3143,12 +3167,12 @@ def files_path(dev, ring) -> dict:
         same = all(np.array_equal(images.load_stack(d), stacks[k])
                    for k, d in enumerate(stop_dirs))
         read_s = time.perf_counter() - t0
-        print(f"files: wrote {stacks.shape[0]} stops x {stacks.shape[1]} "
+        print(f"files: captured {stacks.shape[0]} stops x {stacks.shape[1]} "
               f"{FRAME_EXT.upper()} frames ({size / 2**20:.1f} MiB) in "
-              f"{write_s:.3f} s; read back in {read_s:.3f} s, bit for bit "
-              f"{same}", flush=True)
+              f"{captured['scan_s']:.3f} s; read back in {read_s:.3f} s, "
+              f"bit for bit equal to the rendered ring {same}", flush=True)
         if len(stop_dirs) != stacks.shape[0] or not same:
-            fail("the written session does not read back to the rendered "
+            fail("the captured session does not read back to the rendered "
                  "stacks")
 
         merged_ply = os.path.join(tmp, "merged.ply")
@@ -3254,11 +3278,18 @@ def files_path(dev, ring) -> dict:
         print("files: read-calib: " + " | ".join(
             line.strip() for line in text.splitlines()[:2]), flush=True)
         keep("process-cloud (JPEG fixture)", fixture_check(dev, tmp))
+        stop1_ply = os.path.join(tmp, "stop1.ply")
+        _, launches, _ = run_tool(dev, "process-cloud (stop 1)", [
+            "process-cloud", "-i", stop_dirs[1], "-c", mat, "-o", stop1_ply])
+        keep("process-cloud (stop 1)", launches)
+        captured["views"] = view_modes(dev, tmp, merged_ply,
+                                       (stop_ply, stop1_ply),
+                                       os.path.join(tmp, "clean.stl"))
     print(f"files: kernel launches by tool {tally}", flush=True)
     missing = [k for k in tool_counters() if k not in tally]
     if missing:
         fail(f"the files phase never launched {missing}")
-    return tally
+    return tally, captured
 
 
 def _row_mask(points: np.ndarray, kept: np.ndarray) -> np.ndarray:
@@ -3397,7 +3428,7 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
           f"vertices within two voxels ({2 * voxel:.3f} mm) of the cleaned "
           f"cloud, median {med:.4f} mm from the spheres; STL read back: "
           f"{len(back.faces)} faces", flush=True)
-    cleanup_engines(dev, bg, clean, spheres)
+    cleanup_engines(dev, bg, clean)
     if tilt > 1.0 or abs(z0 - 700.0) > 2.0:
         fail(f"cleanup: the plane is {tilt:.3f} deg and {z0 - 700.0:.3f} mm "
              "off the wall")
@@ -3426,23 +3457,18 @@ def cleanup_path(dev, proj=None, depth: int = 10) -> int:
     return launches["brick_knn_cells"]
 
 
-def cleanup_engines(dev, bg, clean, spheres) -> None:
+def cleanup_engines(dev, bg, clean) -> None:
     """After the cleanup path's counts were read: the brick kernel against
     its plain version on the two inputs that path gave it (the outlier
     removal's padded k = 20 sweep without self, the normals' k = 30 sweep
-    of the cleaned cloud), then, with the exact neighbours by brute force,
-    ``morton`` (the port's route at this size before the brick kernel) and
-    ``rescue`` (the path's), each sweep's recall, the outlier keep mask
-    and the normals, compared pair by pair. The ``dense`` engine is left
-    out: its two sweeps took 149 s of the script's time limit on the card
-    (PERF.md §4), and the exact neighbours already stand for it."""
+    of the cleaned cloud), and its time on each. The engine comparison
+    that followed (``exact`` by brute force, ``morton`` and ``rescue``:
+    recall, keep masks, normals) was printed and never checked; it went to
+    fit the capture phase (PERF.md §4)."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.models import (
         merge,
-    )
-    from structured_light_for_3d_model_replication_tpu_torch.ops import (
-        pointcloud,
     )
 
     pts_p, val_p = merge._pad_cloud(bg.points, dev)
@@ -3455,77 +3481,6 @@ def cleanup_engines(dev, bg, clean, spheres) -> None:
              "points, k=30, self included)")):
         _, inputs = brick_exact(dev, pts, val, k, excl, label)
         brick_timing(*inputs, k, excl, label)
-
-    # The exact neighbours of every point, then each engine's two sweeps:
-    # recall against them, the SOR keep mask by the 2σ rule of
-    # ``statistical_outlier_removal`` (the path's rescue mask is rebuilt
-    # too, as a check of the rule), the normals from the k = 30 sweep.
-    def sor_keep(d2, nbv, valid):
-        mean_d = torch.where(nbv, torch.sqrt(d2), torch.zeros((), device=dev)
-                             ).sum(1) / nbv.sum(1).clamp_min(1)
-        keep, decidable = pointcloud._sor_mask(mean_d, nbv.sum(1) > 0, valid,
-                                               2.0)
-        return torch.where(decidable.any(), keep, valid).cpu().numpy()
-
-    sweeps = (("SOR", pts_p, val_p, 20, True, len(bg)),
-              ("normals", pts_c, val_c, 30, False, len(pts_c)))
-    nbs = {}
-    _sync(dev)
-    t = time.perf_counter()
-    for name, p, v, k, excl, n in sweeps:
-        d2, idx = brute_knn(p, v, k, excl, torch.arange(n, device=dev))
-        pad = len(p) - n
-        nbs[name, "exact"] = (
-            torch.cat([d2, d2.new_zeros((pad, k))]),
-            torch.cat([idx, idx.new_zeros((pad, k))]),
-            v[:, None] & torch.isfinite(torch.cat([d2, d2.new_zeros((pad, k))
-                                                   ])))
-    _sync(dev)
-    secs = {"exact": time.perf_counter() - t}
-    methods = ("morton", "rescue")
-    for m in methods:
-        t = time.perf_counter()
-        for name, p, v, k, excl, _ in sweeps:
-            nbs[name, m] = pointcloud._self_knn(p, k, v, excl, m)
-        _sync(dev)
-        secs[m] = time.perf_counter() - t
-    engines = ("exact",) + methods
-    keep = {m: sor_keep(*nbs["SOR", m][::2], val_p)[:len(bg)]
-            for m in engines}
-    nrm = {m: pointcloud.estimate_normals(pts_c, k=30,
-                                          neighbors=nbs["normals", m])[0]
-           for m in engines}
-    rec = {(name, m): knn_recall(nbs[name, "exact"][1][:n], nbs[name, m][1][:n],
-                                 nbs[name, m][2][:n])
-           for name, _, _, _, _, n in sweeps for m in methods}
-    near = surface_distance(bg.points.astype(np.float64), spheres) <= 2.0
-    path_keep = _row_mask(bg.points, clean.points)
-    print(f"cleanup engines on {dev.type}: SOR (k = 20) on {len(bg)} points "
-          f"kept " + ", ".join(
-              f"{m} {int(keep[m].sum())} ({float(keep[m][near].mean()):.5f}"
-              f" of the {int(near.sum())} within 2 mm of the spheres)"
-              for m in engines)
-          + f"; the path's mask equals rescue's: "
-          f"{bool(np.array_equal(path_keep, keep['rescue']))}; recall "
-          f"against the exact neighbours of every point, SOR k = 20 / "
-          f"normals k = 30: " + ", ".join(
-              f"{m} {rec['SOR', m]:.5f} / {rec['normals', m]:.5f}"
-              for m in methods)
-          + "; seconds for both sweeps: " + ", ".join(
-              f"{m} {secs[m]:.2f}" for m in engines), flush=True)
-    for i, a in enumerate(engines):
-        for b in engines[i + 1:]:
-            dis = keep[a] != keep[b]
-            cos = torch.nan_to_num((nrm[a] * nrm[b]).sum(1).abs(),
-                                   nan=0.0).clamp(max=1.0)
-            ang = torch.rad2deg(torch.acos(cos)).cpu().numpy()
-            print(f"cleanup engines {a} vs {b}: SOR keep masks disagree on "
-                  f"{int(dis.sum())} of {len(bg)} points "
-                  f"({int(dis[near].sum())} of them within 2 mm of the "
-                  f"spheres); normals (k = 30, {len(pts_c)} points) differ "
-                  f"by > 1 deg on {int((ang > 1.0).sum())}, > 10 deg on "
-                  f"{int((ang > 10.0).sum())}, median {np.median(ang):.4f} "
-                  "deg", flush=True)
 
 
 def synthetic_spheres(scene):
@@ -3591,8 +3546,10 @@ def small_rig_agreement(dev) -> None:
     # On to the mesh at depth 9 on each device, compared by outcome (the
     # clouds differ by their RANSAC draws and the sums' order):
     # face counts within 3%, median vertex-to-vertex distance between the
-    # two meshes ≤ 0.25 voxel. A block budget near the band's ~14k blocks
-    # keeps the host run's fields small (every field spans the budget).
+    # two meshes ≤ 0.25 voxel. A block budget just above the band's ~14k
+    # blocks keeps the host run's fields small (every field spans the
+    # budget): 16,384 blocks, where 32,768 took up to 66.8 s of host time
+    # — a cut to fit the capture phase (PERF.md §4).
     from scipy.spatial import cKDTree
 
     from structured_light_for_3d_model_replication_tpu_torch.models import (
@@ -3603,7 +3560,7 @@ def small_rig_agreement(dev) -> None:
     for d, m in ((dev, m_dev), (torch.device("cpu"), m_cpu)):
         t0 = time.perf_counter()
         meshes[d.type] = meshing.mesh_from_cloud(
-            m, depth=9, quantile_trim=0.0, cg_iters=100, max_blocks=32_768,
+            m, depth=9, quantile_trim=0.0, cg_iters=100, max_blocks=16_384,
             device=d)
         print(f"small rig mesh on {d.type}: {len(meshes[d.type].faces)} "
               f"faces in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -4361,8 +4318,9 @@ def gt_start(poses, stereo) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 #: Bench config 9's soak length here; the bench's default is 180 s
-#: (``SL_BENCH_SOAK_S``), cut to keep the whole script inside its limit.
-SOAK_S = 60.0
+#: (``SL_BENCH_SOAK_S``), cut to keep the whole script inside its limit
+#: (60 s until the capture phase came, PERF.md §4).
+SOAK_S = 30.0
 
 
 def windowed(stack: np.ndarray) -> np.ndarray:
@@ -4836,13 +4794,14 @@ def serve_path(dev, ring) -> dict:
     return {"config7": c7, "config9": c9}
 
 
-#: Bench config 10 (``bench.py:2309-2608``): its load seconds, cut from
-#: ``SL_BENCH_FLEET_S``'s 60 to keep the whole run inside its time limit
-#: (PERF.md §4), and the replicas' recipe (the soak/fleet smokes' tiny rig
-#: and flags, ``scripts/soak_smoke.py:70-92`` and
-#: ``scripts/fleet_smoke.py:91-110``), copied here: those scripts start the
-#: JAX package's command-line tool.
-FLEET_S = 30.0
+#: Bench config 10 (``bench.py:2309-2608``): its load seconds,
+#: ``SL_BENCH_FLEET_S``'s 60 (a shorter load ends before a job resubmitted
+#: 30 s after the kill comes back, and its scans/s then reads that wait),
+#: and the replicas'
+#: recipe (the soak/fleet smokes' tiny rig and flags,
+#: ``scripts/soak_smoke.py:70-92`` and ``scripts/fleet_smoke.py:91-110``),
+#: copied here: those scripts start the JAX package's command-line tool.
+FLEET_S = 60.0
 FLEET_REPLICAS = 3
 FLEET_PROJ = (64, 32)          # projector width, height: 6 + 5 bits
 FLEET_CAM = (24, 40)           # camera height, width = the one bucket
@@ -5044,13 +5003,14 @@ def uninterrupted_ply(dev, ring) -> bytes:
 
 
 def fleet_chaos(dev, load_s: float = FLEET_S, env: dict | None = None,
-                start_s: float = 300.0, resubmit_s: float = 30.0) -> dict:
+                start_s: float = 300.0, resubmit_s: float = 30.0,
+                burst_jobs: int = 4) -> dict:
     """Bench config 10 as written (``bench.py:2309-2608``) on the port:
     ``FLEET_REPLICAS`` replicas of the recipe (``Replica``) behind an
     in-process ``FleetRouter`` (check interval 0.25 s), two load threads
     for ``load_s`` seconds (one submit in five a duplicate drawn from 4
     corner-tagged variants), a session pinned with 2 stops of the ring;
-    at 0.4 · ``load_s`` a 4-job burst straight at the pinned replica, its
+    at 0.4 · ``load_s`` a burst straight at the pinned replica, its
     SIGKILL, the proactive re-pin with no client op, stop 3, a
     replacement on the same port with ``--recover`` (≥ 1 burst job
     recovered), the rest of the load, stop 4 and the PLY finalize. Every
@@ -5060,10 +5020,11 @@ def fleet_chaos(dev, load_s: float = FLEET_S, env: dict | None = None,
     JAX package's members. A load job whose id the replacement does not
     know (terminal on the victim just before the kill) is resubmitted
     after ``resubmit_s`` seconds, as the bench does after 30; ``start_s``
-    bounds each replica's start and ``env`` is added to the replicas'
-    environment. Returns the metrics, the router's stats and signals,
-    each replica's scrape (the victim's last before its kill) and the
-    probe's bundle."""
+    bounds each replica's start, ``env`` is added to the replicas'
+    environment and ``burst_jobs`` is the burst's size (the bench's 4).
+    Returns the metrics, the router's stats and signals, each replica's
+    scrape (the victim's last before its kill) and the probe's bundle."""
+    import concurrent.futures
     import shutil
     import tarfile
     import tempfile
@@ -5205,12 +5166,30 @@ def fleet_chaos(dev, load_s: float = FLEET_S, env: dict | None = None,
         for t in threads:
             t.start()
         time.sleep(0.4 * load_s)
+        with lock:
+            done_pre_kill = counters["done"]
+        pre_kill_s = time.perf_counter() - t_load0
 
-        vclient = ServeClient(urls[victim], timeout_s=60.0)
-        burst = [vclient.submit(fstack + np.uint8(100 + i))
-                 for i in range(4)]
+        # The victim's last scrape comes before the burst, the burst's
+        # submits go at once, and the thread that receives the last ack
+        # kills the victim: the kill must land before the victim runs
+        # every burst job. Submitted one after another (the bench), the
+        # first jobs finish while the last are sent, and on a loaded host
+        # every one of them can, leaving none to recover.
         scrapes = {f"r{victim}": scrape(urls[victim])}
-        reps[victim].proc.kill()
+        vclient = ServeClient(urls[victim], timeout_s=60.0)
+        acked = []
+
+        def burst_job(i):
+            jid = vclient.submit(fstack + np.uint8(100 + i))
+            with lock:
+                acked.append(jid)
+                if len(acked) == burst_jobs:
+                    reps[victim].proc.kill()
+            return jid
+
+        with concurrent.futures.ThreadPoolExecutor(burst_jobs) as pool:
+            burst = list(pool.map(burst_job, range(burst_jobs)))
         reps[victim].proc.wait(timeout=30.0)
         t_kill = time.monotonic()
         repin_deadline = time.monotonic() + 120.0
@@ -5315,6 +5294,7 @@ def fleet_chaos(dev, load_s: float = FLEET_S, env: dict | None = None,
             and not manifest["errors"]}
         out.update(
             fleet_scans_per_s=counters["done"] / load_wall,
+            fleet_scans_per_s_pre_kill=done_pre_kill / pre_kill_s,
             fleet_failover_s=failover_s,
             fleet_proactive_repin_s=proactive_repin_s, load_s=load_wall,
             counters=dict(counters), dup_hit_ratio=dup_ratio,
@@ -5326,7 +5306,9 @@ def fleet_chaos(dev, load_s: float = FLEET_S, env: dict | None = None,
             slowest_job=slowest, exit_codes=rcs, router=stats,
             signals=signals, scrapes=scrapes, probe=probe,
             bundle_members=sorted(names), checks=checks)
-        print(f"fleet: fleet_scans_per_s {out['fleet_scans_per_s']:.3f}, "
+        print(f"fleet: fleet_scans_per_s {out['fleet_scans_per_s']:.3f} "
+              f"({done_pre_kill} jobs in the {pre_kill_s:.3f} s before the "
+              f"kill: {out['fleet_scans_per_s_pre_kill']:.3f}), "
               f"fleet_failover_s {failover_s:.3f}, fleet_proactive_repin_s "
               f"{proactive_repin_s:.3f}; {counters} in {load_wall:.3f} s of "
               f"load, dup ratio {dup_ratio}, {recovered} burst job(s) "
@@ -5379,6 +5361,498 @@ def fleet_path(dev) -> dict:
           f"{launches}", flush=True)
     return {"launches": launches, "numbers": out}
 
+# ---------------------------------------------------------------------------
+# Phase 8f: the capture loop — the virtual rig, the scanner, cli scan, the
+# phone's pull-mode transport and cli view
+# ---------------------------------------------------------------------------
+
+# The files phase's auto-scan: transient capture timeouts on these stops'
+# third frame, and one truncated upload on CAPTURE_TRUNCATE's fifth.
+CAPTURE_TRANSIENT = (3, 9, 14, 20)
+CAPTURE_TRUNCATE = 11
+# The hard-failure ring of tests/test_chaos.py's end-to-end test, at the
+# tests' rig (tests/conftest.py: SMALL_PROJ 256×128 at brightness 200,
+# CAM_H × CAM_W 96×160): the same transients, hard failures on 6 and 17.
+CHAOS_PROJ = (256, 128)
+CHAOS_CAM = (96, 160)
+CHAOS_HARD = (6, 17)
+CHAOS_BRIDGES = {(7, 5), (18, 16)}
+
+
+def capture_retry():
+    """The chaos tests' fast retry policy and no-op sleep."""
+    from structured_light_for_3d_model_replication_tpu_torch import scanner
+
+    return dict(retry=scanner.RetryPolicy(frame_attempts=2, stop_attempts=2,
+                                          backoff_s=0.0),
+                sleep=lambda s: None)
+
+
+def stop_match(k: int, step: float, frame: int | None = None) -> str:
+    """The fault-plan match of stop ``k``'s folder (and one frame)."""
+    m = f"_{k * step:g}deg_scan"
+    return m if frame is None else f"{m}/{frame:02d}"
+
+
+def capture_session(dev, ring, root: str) -> dict:
+    """Phase 8f (a): the files phase's session, captured. A ``VirtualRig``
+    at the ring's rig (``headline_scene(None)``, the ring's projector, a
+    camera at the projector's resolution, ``render_stacks``'
+    calibration) driven by the port's ``Scanner`` through a
+    ``FlakyCamera`` (``settle_s=0``, the chaos tests' retry policy, no
+    sleep): ``auto_scan_360("obj", 15°, the ring's stops)`` into the
+    session layout under ``root``, frame by frame — project, capture,
+    verify on disk. Transient timeouts on ``CAPTURE_TRANSIENT`` and one
+    truncated upload on ``CAPTURE_TRUNCATE``; the health report must hold
+    exactly those, one retry each, and every other stop clean. Every
+    kernel counter is zeroed before and read after (the capture is host
+    work). Returns the numbers and the launches."""
+    from structured_light_for_3d_model_replication_tpu_torch import (
+        health as health_mod,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch import scanner
+    from structured_light_for_3d_model_replication_tpu_torch.hw import (
+        VirtualRig,
+        faults,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.layout import (
+        SessionLayout,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    proj = ring["proj"]
+    n_stops, n_frames, h, w = ring["stacks"].shape
+    transient = [k for k in CAPTURE_TRANSIENT if k < n_stops]
+    rules = [faults.FaultPlan.transient(stop_match(k, STEP_DEG, 3), "timeout")
+             for k in transient]
+    if CAPTURE_TRUNCATE < n_stops:
+        rules.append(faults.FaultPlan.transient(
+            stop_match(CAPTURE_TRUNCATE, STEP_DEG, 5), "truncate"))
+    t0 = time.perf_counter()
+    rig = VirtualRig(scene=headline_scene(None), cam_height=h, cam_width=w,
+                     proj=proj, calibration=synthetic.default_calibration(
+                         h, w, proj))
+    camera = faults.FlakyCamera(rig.camera, faults.FaultPlan(rules))
+    sc = scanner.Scanner(camera, rig.projector, rig.turntable, proj=proj,
+                         layout=SessionLayout(root).ensure(), settle_s=0.0,
+                         **capture_retry())
+    setup_s = time.perf_counter() - t0
+    health = health_mod.ScanHealthReport()
+    counters = tool_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    stops = sc.auto_scan_360("obj", degrees_per_turn=STEP_DEG,
+                             turns=n_stops, health=health)
+    scan_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    shots = sum(camera.attempts.values())
+    faulted = sorted(transient + ([CAPTURE_TRUNCATE]
+                                  if CAPTURE_TRUNCATE < n_stops else []))
+    clean = [i for i in range(n_stops) if i not in faulted]
+    injected = sorted((os.path.relpath(p, root).split(os.sep)[-2:], a, kind)
+                      for p, a, kind in camera.injected)
+    checks = {
+        "stops": len(stops) == n_stops,
+        "failed_none": health.failed_stops == [],
+        "recovered_exactly": health.recovered_stops == faulted,
+        "one_retry_each": all(health.stops[i].retries == 1
+                              for i in faulted),
+        "others_clean": all(health.stops[i].retries == 0
+                            and not health.stops[i].faults for i in clean),
+        "injected_exactly": len(camera.injected) == len(faulted),
+        "no_launches": not any(launches.values())}
+    out = dict(stops=n_stops, frames=n_stops * n_frames, shots=shots,
+               setup_s=setup_s, scan_s=scan_s,
+               frames_per_s=n_stops * n_frames / scan_s,
+               launches=launches, checks=checks)
+    print(f"capture (a): virtual auto-scan of {n_stops} stops x {n_frames} "
+          f"frames at {h}x{w} in {scan_s:.3f} s ({out['frames_per_s']:.2f} "
+          f"frames/s, {shots} shots with the retries; rig set-up "
+          f"{setup_s:.3f} s); health: recovered {health.recovered_stops}, "
+          f"failed {health.failed_stops}, retries "
+          f"{sum(s.retries for s in health.stops.values())}; injected "
+          f"{injected}; checks {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"capture (a): the health report is not the injected plan: "
+             f"{checks}; {health.to_json(indent=None)}")
+    return out
+
+
+def hard_ring(dev) -> dict:
+    """Phase 8f (b): tests/test_chaos.py's end-to-end chaos ring on the
+    card. The tests' rig (``CHAOS_PROJ``, ``CHAOS_CAM``), its four-sphere
+    scene, 24 stops × 15° through a ``FlakyCamera``: transient timeouts
+    on ``CAPTURE_TRANSIENT``, hard failures on ``CHAOS_HARD``; then the
+    gated ``scan_stacks_to_cloud`` of the 22 survivors with their
+    ``stop_labels`` (the JAX test's parameters), held to the JAX test's
+    assertions: the bridged edges exactly ``CHAOS_BRIDGES``, against the
+    clean ungated run on the same stops the centroid within 2 voxels and
+    the count within 5% + 8, and ``mesh_from_cloud(depth=5)`` with
+    faces. Counters zeroed before the gated run and read after the mesh.
+    Returns the launches and the numbers."""
+    import tempfile
+
+    from structured_light_for_3d_model_replication_tpu_torch import (
+        health as health_mod,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch import scanner
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.hw import (
+        VirtualRig,
+        faults,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io import images
+    from structured_light_for_3d_model_replication_tpu_torch.io.layout import (
+        SessionLayout,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+        meshing,
+        scan360,
+        synthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops.triangulate import (
+        make_calibration,
+    )
+
+    n_turns, step = 24, 15.0
+    proj = ProjectorConfig(width=CHAOS_PROJ[0], height=CHAOS_PROJ[1],
+                           brightness=200)
+    h, w = CHAOS_CAM
+    rules = [faults.FaultPlan.transient(stop_match(k, step, 3), "timeout")
+             for k in CAPTURE_TRANSIENT]
+    rules += [faults.FaultPlan.hard(stop_match(k, step), "timeout")
+              for k in CHAOS_HARD]
+    scene = synthetic.Scene(wall_z=None, spheres=(
+        synthetic.Sphere((0.0, 10.0, 500.0), 80.0, 0.9),
+        synthetic.Sphere((60.0, -40.0, 460.0), 35.0, 0.7),
+        synthetic.Sphere((-70.0, 40.0, 530.0), 30.0, 0.8),
+        synthetic.Sphere((20.0, 70.0, 440.0), 25.0, 0.75)))
+    rig = VirtualRig(scene=scene, proj=proj, cam_height=h, cam_width=w)
+    health = health_mod.ScanHealthReport()
+    calib = make_calibration(rig.cam_K, rig.proj_K, rig.R, rig.T, h, w,
+                             proj_width=proj.width, proj_height=proj.height,
+                             device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        layout = SessionLayout(os.path.join(tmp, "session")).ensure()
+        sc = scanner.Scanner(
+            faults.FlakyCamera(rig.camera, faults.FaultPlan(rules)),
+            rig.projector, rig.turntable, proj=proj, layout=layout,
+            settle_s=0.0, **capture_retry())
+        t0 = time.perf_counter()
+        stops = sc.auto_scan_360("obj", degrees_per_turn=step, turns=n_turns,
+                                 health=health)
+        capture_s = time.perf_counter() - t0
+        stacks = np.stack([images.load_stack(d) for d in stops])
+    labels = [i for i in range(n_turns) if i not in CHAOS_HARD]
+    captured = (len(stops) == len(labels)
+                and health.failed_stops == sorted(CHAOS_HARD)
+                and health.recovered_stops == sorted(CAPTURE_TRANSIENT))
+    mp = merge.MergeParams(voxel_size=6.0, ransac_iterations=1024,
+                           icp_iterations=12, fpfh_max_nn=32, normals_k=12,
+                           max_points=2048, step_deg=step)
+    params = scan360.Scan360Params(
+        merge=mp, method="sequential", view_cap=8192,
+        gates=health_mod.QualityGates(min_coverage=0.02,
+                                      min_edge_fitness=0.2))
+    counters = tool_counters()
+    _sync(dev)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    merged, poses = scan360.scan_stacks_to_cloud(
+        stacks, calib, proj.col_bits, proj.row_bits, params=params,
+        health=health, stop_labels=labels, device=dev)
+    _sync(dev)
+    gated_s = time.perf_counter() - t0
+    mesh = meshing.mesh_from_cloud(merged, depth=5, device=dev)
+    _sync(dev)
+    launches = {k: c.launches for k, c in counters.items()}
+    m_clean, _ = scan360.scan_stacks_to_cloud(
+        stacks, calib, proj.col_bits, proj.row_bits,
+        params=scan360.Scan360Params(merge=mp, method="sequential",
+                                     view_cap=8192), device=dev)
+    gap2 = {(e.src, e.dst) for e in health.edges if e.gap == 2}
+    shift = float(np.linalg.norm(merged.points.mean(axis=0)
+                                 - m_clean.points.mean(axis=0)))
+    checks = {
+        "capture_health": captured,
+        "survivors": len(merged) > 200 and poses.shape == (len(labels), 4, 4)
+        and health.dropped_stops == [],
+        "coverage_by_label": all(health.stops[i].coverage is None
+                                 for i in CHAOS_HARD)
+        and all(health.stops[i].coverage > 0.02 for i in labels),
+        "bridges": gap2 == CHAOS_BRIDGES and all(
+            e.gap == 1 for e in health.edges if (e.src, e.dst) not in gap2),
+        "centroid": shift < 2 * mp.voxel_size,
+        "count": abs(len(merged) - len(m_clean))
+        <= 0.05 * len(m_clean) + 8,
+        "mesh": len(mesh.faces) > 0,
+        "kernels": launches["decode_maps"] > 0
+        and launches["nearest_one"] > 0}
+    print(f"capture (b): hard-failure ring at {h}x{w}: capture {capture_s:.3f}"
+          f" s, {len(stops)} of {n_turns} stops (failed "
+          f"{health.failed_stops}, recovered {health.recovered_stops}); "
+          f"gated merge of the survivors {gated_s:.3f} s, {len(merged)} "
+          f"points (clean ungated {len(m_clean)}, centroid {shift:.4f} mm "
+          f"apart), bridges {sorted(gap2)}, depth-5 mesh {len(mesh.faces)} "
+          f"faces; launches { {k: v for k, v in launches.items() if v} }; "
+          f"checks {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"capture (b): the hard-failure ring failed {checks}")
+    return dict(launches=launches, capture_s=capture_s, gated_s=gated_s,
+                checks=checks)
+
+
+def pull_stop(dev, ring) -> dict:
+    """Phase 8f (c): the phone's pull-mode transport, one stop at the
+    ring's resolution. A port ``CommandServer`` on loopback and a
+    ``PullCamera``; a client thread replays the reference front end's
+    loop (`frotend/App.tsx:195-248`: poll ``/poll_command``, dedup on the
+    command id, answer ``capture`` by POSTing a multipart ``file`` part)
+    with the virtual rig's render of the displayed frame as a PNG. One
+    ``capture_stack`` of stop 0; the files on disk must equal the ring's
+    stop 0 bit for bit."""
+    import io as _io
+    import tempfile
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from structured_light_for_3d_model_replication_tpu_torch import scanner
+    from structured_light_for_3d_model_replication_tpu_torch.hw import (
+        CommandServer,
+        PullCamera,
+        VirtualRig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io import images
+    from structured_light_for_3d_model_replication_tpu_torch.io.layout import (
+        SessionLayout,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    proj = ring["proj"]
+    _, n_frames, h, w = ring["stacks"].shape
+    rig = VirtualRig(scene=headline_scene(None), cam_height=h, cam_width=w,
+                     proj=proj, calibration=synthetic.default_calibration(
+                         h, w, proj))
+    server = CommandServer(host="127.0.0.1", port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    stop = threading.Event()
+    sent = {"frames": 0, "bytes": 0, "polls": 0, "errors": []}
+
+    def phone():
+        last = None
+        boundary = "----WebKitFormBoundaryCAPTURE"
+        while not stop.is_set():
+            try:
+                with urllib.request.urlopen(base + "/poll_command",
+                                            timeout=10) as r:
+                    cmd = json.loads(r.read().decode())
+                sent["polls"] += 1
+                if cmd["action"] == "capture" and cmd["id"] != last:
+                    last = cmd["id"]
+                    buf = _io.BytesIO()
+                    Image.fromarray(rig.camera.capture_array()).save(buf,
+                                                                     "PNG")
+                    body = (f"--{boundary}\r\nContent-Disposition: "
+                            f'form-data; name="file"; filename="capture.jpg"'
+                            f"\r\nContent-Type: image/png\r\n\r\n"
+                            ).encode() + buf.getvalue() + (
+                        f"\r\n--{boundary}--\r\n").encode()
+                    req = urllib.request.Request(
+                        base + "/upload", data=body, method="POST",
+                        headers={"Content-Type": "multipart/form-data; "
+                                 f"boundary={boundary}"})
+                    with urllib.request.urlopen(req, timeout=30):
+                        pass
+                    sent["frames"] += 1
+                    sent["bytes"] += len(buf.getvalue())
+            except Exception as e:          # reported by the main thread
+                sent["errors"].append(repr(e))
+            stop.wait(0.002)
+
+    client = threading.Thread(target=phone, daemon=True)
+    counters = tool_counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            client.start()
+            sc = scanner.Scanner(PullCamera(server.channel, timeout=30.0),
+                                 rig.projector, proj=proj,
+                                 layout=SessionLayout(tmp).ensure(),
+                                 settle_s=0.0, sleep=lambda s: None)
+            out = os.path.join(tmp, "stop0")
+            t0 = time.perf_counter()
+            sc.capture_stack(out)
+            secs = time.perf_counter() - t0
+            same = np.array_equal(images.load_stack(out), ring["stacks"][0])
+    finally:
+        stop.set()
+        client.join(timeout=30.0)
+        server.stop()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"capture (c): pull-mode stop 0 at {h}x{w} over HTTP loopback: "
+          f"{sent['frames']} uploads ({sent['bytes'] / 2**20:.1f} MiB of "
+          f"PNG, {sent['polls']} polls) in {secs:.3f} s "
+          f"({n_frames / secs:.2f} frames/s); the files equal the ring's "
+          f"stop 0 bit for bit {same}; client errors {sent['errors'][:3]}",
+          flush=True)
+    if not same or sent["frames"] != n_frames or sent["errors"] \
+            or any(launches.values()):
+        fail("capture (c): the pull-mode stop is not the ring's stop 0")
+    return dict(launches=launches, seconds=secs,
+                frames_per_s=n_frames / secs)
+
+
+def cli_scan(dev) -> dict:
+    """Phase 8f (d): ``cli scan auto360 --virtual`` as written (the CLI's
+    96×160 rig) in this process, ``--turns 4 --degrees 90
+    --health-json``: four stops, each a full stack, the health JSON
+    clean; the same command again resumes every stop and rewrites no
+    frame."""
+    import tempfile
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.layout import (
+        SessionLayout,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = os.path.join(tmp, "health.json")
+        argv = ["scan", "auto360", "--virtual", "--turns", "4", "--degrees",
+                "90", "--name", "obj", "--session", tmp, "--health-json", hp]
+        wall, launches, _ = run_tool(dev, "scan auto360 --virtual", argv)
+        first = json.load(open(hp))
+        stops = SessionLayout.today(tmp).stop_dirs("obj", 90.0)
+        stamps = {d: sorted((f, os.path.getmtime(os.path.join(d, f)))
+                            for f in os.listdir(d)) for d in stops}
+        wall2, launches2, _ = run_tool(dev, "scan auto360 --virtual (again)",
+                                       argv)
+        second = json.load(open(hp))
+        same = stamps == {d: sorted((f, os.path.getmtime(os.path.join(d, f)))
+                                    for f in os.listdir(d)) for d in stops}
+    status = ([s["status"] for s in first["stops"]],
+              [s["status"] for s in second["stops"]])
+    print(f"capture (d): cli scan auto360 --virtual: {len(stops)} stops in "
+          f"{wall:.3f} s, {len(stamps[stops[0]]) if stops else 0} frames "
+          f"each, statuses {status[0]}; again in {wall2:.3f} s: "
+          f"{status[1]}, no frame rewritten {same}", flush=True)
+    if len(stops) != 4 or status != (["captured"] * 4, ["resumed"] * 4) \
+            or not same or any(launches.values()) \
+            or any(launches2.values()):
+        fail("capture (d): cli scan did not capture 4 stops and resume")
+    return dict(launches=launches, seconds=wall, resume_s=wall2)
+
+
+def view_modes(dev, tmp: str, merged_ply: str, stop_plys: tuple[str, str],
+               model: str) -> dict:
+    """Phase 8f (e): ``cli view --device <card>`` on the files phase's
+    outputs — the merged PLY plain and with ``--plane``; stop 0's PLY (a
+    capture-size cloud, where the ``"auto"`` KNN engine takes the brick
+    kernel on the card) with ``--outliers``; stop 0's PLY ``--compare``
+    stop 1's with ``--icp`` (``register_pair_clouds`` at the tool's
+    defaults); the depth-10 STL of stop 0's cleanup (2.9 M faces; the
+    ring's 15.4 M-face STL took 145.8 s of host numpy to render, PERF.md
+    §4). Each PNG must be non-empty; its size is printed. The launches of
+    each mode are read from the counters. After the counts,
+    ``--outliers``' keep mask again on the card must equal the same sweep's
+    on the host (the kernel's plain version, then
+    ``statistical_outlier_removal``'s 2σ rule), and the tool's PNG
+    ``viz.render_inliers`` of the host's mask. Returns {mode: launches}."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch import viz
+    from structured_light_for_3d_model_replication_tpu_torch.cli import view
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        brickknn,
+        pointcloud,
+    )
+
+    stop_ply = stop_plys[0]
+    modes = {"view": [merged_ply],
+             "view --outliers": [stop_ply, "--outliers"],
+             "view --plane": [merged_ply, "--plane"],
+             "view --compare --icp": [stop_ply, "--compare", stop_plys[1],
+                                      "--icp"],
+             "view (STL)": [model]}
+    tally, pngs = {}, {}
+    for i, (mode, args) in enumerate(modes.items()):
+        png = os.path.join(tmp, f"view{i}.png")
+        tally[mode], pngs[mode] = view_png(dev, mode, ["view", *args, "-o",
+                                                        png])
+    if tally["view --compare --icp"]["nearest_one"] <= 0:
+        fail("capture (e): view --icp never launched nearest_one")
+    pts = ply.read_ply(stop_ply).points
+    method = pointcloud._auto_method(len(pts), 20, dev)
+    host_pts = torch.from_numpy(np.asarray(pts, np.float32))
+    t0 = time.perf_counter()
+    # The kernel's plain version on the host (use_pallas=True on a CPU
+    # tensor); "rescue" on a CPU tensor would take the JAX package's dense
+    # brick form, another algorithm at slot overflow.
+    host = brickknn.brick_knn(host_pts, 20, exclude_self=True,
+                              use_pallas=True) if method == "rescue" else \
+        pointcloud._self_knn(host_pts, 20, None, True, method)
+    host_s = time.perf_counter() - t0
+    keep = pointcloud.sor_keep(host[0], host[2], torch.ones(
+        len(pts), dtype=torch.bool)).numpy()
+    card_keep = view.outlier_mask(pts, dev)
+    same_png = np.array_equal(pngs["view --outliers"],
+                              viz.render_inliers(pts, keep))
+    same = np.array_equal(card_keep, keep)
+    print(f"capture (e): view --outliers on {len(pts)} points: engine "
+          f"{method!r}, brick_knn_cells launches "
+          f"{tally['view --outliers']['brick_knn_cells']}; rejected "
+          f"{int((~card_keep).sum())} on the card, {int((~keep).sum())} by "
+          f"the same sweep on the host (the kernel's plain version, "
+          f"{host_s:.3f} s): masks equal {same}, the tool's PNG equal to "
+          f"the host mask's render {same_png}", flush=True)
+    if not same or not same_png:
+        fail("capture (e): view --outliers' mask differs from the host's")
+    return tally
+
+
+def view_png(dev, mode: str, argv: list[str]):
+    """One ``cli view`` run (``run_tool``): the PNG must be non-empty.
+    Returns (launches, the decoded image)."""
+    from structured_light_for_3d_model_replication_tpu_torch import viz
+
+    png = argv[argv.index("-o") + 1]
+    wall, launches, _ = run_tool(dev, mode, argv)
+    img = viz.load_png(png)
+    lit = int(np.any(img != np.asarray(viz.BACKGROUND, np.uint8),
+                     axis=-1).sum())
+    print(f"capture (e): {mode}: {os.path.getsize(png)} bytes, "
+          f"{img.shape[1]}x{img.shape[0]}, {lit} lit pixels, {wall:.3f} s",
+          flush=True)
+    if not lit:
+        fail(f"capture (e): {mode} wrote an empty image")
+    return launches, img
+
+
+def capture_path(dev, ring) -> dict:
+    """Phase 8f (b)-(d), each with its seconds; (a) and (e) run inside the
+    files phase. Returns {part: launches by kernel} and the numbers."""
+    out = {}
+    for part, fn in (("hard ring (b)", lambda: hard_ring(dev)),
+                     ("pull stop (c)", lambda: pull_stop(dev, ring)),
+                     ("cli scan (d)", lambda: cli_scan(dev))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        print(f"capture: {part} {time.perf_counter() - t0:.1f} s wall",
+              flush=True)
+    return out
+
+
 class PhaseClock:
     """Wall seconds of the run's phases: ``with clock("name"):`` prints
     the phase's seconds when it ends; ``report()`` prints all of them and
@@ -5424,6 +5898,12 @@ def main() -> int:
                     help="build, render the ring's first 4 stops, then the "
                          "serve phase only (bench configs 7 and 9 and a "
                          "session; no result line)")
+    ap.add_argument("--capture-only", action="store_true",
+                    help="build, render the ring, then the capture loop "
+                         "only: the hard-failure ring, the pull-mode stop "
+                         "and cli scan (8f b-d), then the files phase on "
+                         "the virtual auto-scan with cli view (8f a, e; no "
+                         "result line)")
     ap.add_argument("--fleet-only", action="store_true",
                     help="build, then the fleet phase only (bench config "
                          "10: three replica processes behind the router; "
@@ -5477,6 +5957,15 @@ def main() -> int:
     if args.serve_only:
         serve_path(dev, files_ring(dev, n_stops=4))
         return 0
+    if args.capture_only:
+        with clock("render the ring"):
+            ring = files_ring(dev)
+        with clock("capture (8f b-d)"):
+            capture_path(dev, ring)
+        with clock("files (8b) with the capture (8f a, e)"):
+            files_path(dev, ring)
+        clock.report()
+        return 0
     if args.fleet_only:
         with clock("fleet (8e)"):
             fleet_path(dev)
@@ -5528,8 +6017,10 @@ def main() -> int:
     # Last, so every profiler window above runs as it did before these
     # phases were added (the profiler records fewer launches late in a
     # long run).
-    with clock("files (8b)"):
-        files = files_path(dev, ring)
+    with clock("files (8b) with the capture (8f a, e)"):
+        files, captured = files_path(dev, ring)
+    with clock("capture (8f b-d)"):
+        capture = capture_path(dev, ring)
     with clock("calibration (8c)"):
         calib_launches = calibration_path(dev)
     with clock("serve (8d)"):
@@ -5547,9 +6038,12 @@ def main() -> int:
             "session": served["config9"]["session"]["session_launches"][name],
             "render": served["config9"]["session"]["render_launches"][name]}
         k["fleet"] = fleet["launches"][name]
+        k["capture"] = {"auto360 (a)": captured["launches"][name]} | {
+            f"{mode} (e)": n[name] for mode, n in captured["views"].items()
+        } | {part: out["launches"][name] for part, out in capture.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "files",
-             "calibration", "serve", "fleet")
+             "calibration", "serve", "fleet", "capture")
     clock.report()
     print(json.dumps({"kernels": [
         {key: k[key] for key in order + tuple(

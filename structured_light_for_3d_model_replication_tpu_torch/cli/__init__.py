@@ -15,14 +15,18 @@ PLY and a printable STL out — on the card.
 ``serve``          the continuous-batching reconstruction service, one
                    replica on one device (HTTP submit → PLY/STL, sessions),
                    or with ``--router`` the fleet's front router
+``scan``           drive a capture rig, real or virtual (`server/gui.py:686`)
+``view``           render a .ply/.stl to PNG — the headless stand-in for the
+                   reference's Open3D viewer moments (`Old/New360.py:72`,
+                   `Old/StatisticalOutlierRemoval.py:66-71`)
 ``diagnose``       support bundle: health + metrics + flight journal +
                    Perfetto spans + env manifest in one tarball
 ================  ===========================================================
 
 Every tool that computes takes ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path on the host). ``scan``, ``view`` and ``lint`` are
-not ported yet: they exit with code 2 and name the ROADMAP step that
-brings them.
+the plain PyTorch path on the host); ``scan`` and ``read-calib`` compute
+nothing on a device and take none. ``lint`` is not ported yet: it exits
+with code 2 and names the ROADMAP step that brings it.
 
 Invoke via ``python -m structured_light_for_3d_model_replication_tpu_torch.cli
 <tool> [args]``.
@@ -49,9 +53,7 @@ _TOOLS = {
 # Tools whose modules the port does not have yet, with the ROADMAP Queue 1
 # step that brings them.
 _NOT_PORTED = {
-    "lint": "step 5 (host-only modules)",
-    "scan": "step 5 (host-only modules)",
-    "view": "step 5 (host-only modules)",
+    "lint": "step 5(b) (the lazy-import rule, analysis/)",
 }
 
 

@@ -1,6 +1,7 @@
 """Configuration dataclasses: a copy of the JAX package's ``config.py``
 parameter sets the 360° path reads (projector geometry, decode masks,
-triangulation), the calibration target and the dated session root."""
+triangulation), the calibration target, the turntable schedule and the
+dated session root."""
 
 from __future__ import annotations
 
@@ -72,6 +73,17 @@ class CheckerboardConfig:
     cols: int = 7
     rows: int = 7
     square_mm: float = 35.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TurntableConfig:
+    """360° schedule; reference `server/gui.py:79-80` defaults 12 x 30°."""
+
+    turns: int = 12
+    degrees_per_turn: float = 30.0
+    baud: int = 115200
+    done_timeout_s: float = 10.0
+    settle_s: float = 0.5
 
 
 def dated_output_root(base: str = ".") -> str:

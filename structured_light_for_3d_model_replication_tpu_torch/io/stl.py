@@ -108,10 +108,44 @@ def read_stl(path: str) -> TriangleMesh:
 
 def _mesh_from_tris(tris: np.ndarray) -> TriangleMesh:
     flat = np.ascontiguousarray(tris.reshape(-1, 3), np.float32)
-    verts, inv = np.unique(flat.view([("", "<f4")] * 3), return_inverse=True)
-    vertices = verts.view("<f4").reshape(-1, 3)
+    merged = _merge_rows(flat)
+    if merged is None:
+        verts, inv = np.unique(flat.view([("", "<f4")] * 3),
+                               return_inverse=True)
+        merged = verts.view("<f4").reshape(-1, 3), inv
+    vertices, inv = merged
     faces = inv.reshape(-1, 3).astype(np.int32)
     return TriangleMesh(vertices.astype(np.float32), faces)
+
+
+def _merge_rows(flat: np.ndarray):
+    """The distinct rows of (N, 3) float32 ``flat`` and each row's index
+    among them, as ``np.unique`` gives them for the structured view (rows
+    ordered by x, then y, then z, as floats), by one lexsort of integer
+    keys: ``np.unique`` sorts by comparing the structured rows field by
+    field, which dominates the read of a mesh of millions of faces. None
+    where that result is not determined by the values alone — no rows, a
+    NaN, or rows equal as floats but not bit for bit (±0), whose
+    representative ``np.unique`` takes from its own unstable sort."""
+    if not len(flat) or np.isnan(flat).any():
+        return None
+    bits = np.where(flat == 0, np.float32(0), flat).view(np.uint32)
+    # Float order as unsigned order: negatives flipped, positives lifted.
+    key = np.where(bits >> 31 == 1, ~bits, bits | np.uint32(0x80000000))
+    hi = key[:, 0].astype(np.uint64) << np.uint64(32) | key[:, 1]
+    lo = key[:, 2]
+    order = np.lexsort((lo, hi))
+    hs, ls = hi[order], lo[order]
+    new = np.empty(len(order), bool)
+    new[0] = True
+    new[1:] = (hs[1:] != hs[:-1]) | (ls[1:] != ls[:-1])
+    group = np.cumsum(new) - 1
+    raw = flat.view(np.uint32)[order]
+    if not np.array_equal(raw, raw[new][group]):
+        return None
+    inv = np.empty(len(order), np.intp)
+    inv[order] = group
+    return flat[order[new]], inv
 
 
 def _read_stl_ascii(path: str) -> TriangleMesh:

@@ -102,18 +102,24 @@ class MergeParams:
 
 def _preprocess(pts, valid, voxel: float, normals_k: int, fpfh_max_nn: int,
                 fpfh_engine: str = "gather", fpfh_slots: int = 48,
-                fpfh_max_cells: int = 1024):
+                fpfh_max_cells: int = 1024, cells_only: bool = False):
     """`preprocess_point_cloud` (`server/processing.py:78-96`): voxel
     downsample, normals, FPFH at 5·voxel. "gather": ONE shared KNN sweep
     feeds both normals (first ``normals_k`` columns) and FPFH (all
     ``fpfh_max_nn``). "brick": a ``normals_k`` sweep for the normals and
-    the brick-layout FPFH, whose candidate thinning is logged. Returns
-    (pts, valid, normals, feat)."""
+    the brick-layout FPFH, whose candidate thinning is logged. With
+    ``cells_only`` the KNN sweeps only the downsampled cells, the leading
+    slots (one host read of their count; ``knn``'s ``live``): the same
+    result as the sweep over every slot, for a full-resolution cloud whose
+    cells are a small share of its slots. Returns (pts, valid, normals,
+    feat)."""
     if fpfh_engine not in ("gather", "brick"):
         raise ValueError(f"unknown fpfh_engine {fpfh_engine!r}")
-    dpts, _, dvalid, _ = pointcloud.voxel_downsample(pts, voxel, valid=valid)
+    dpts, _, dvalid, n_cells = pointcloud.voxel_downsample(pts, voxel,
+                                                           valid=valid)
+    live = (int(n_cells),) * 2 if cells_only else None
     if fpfh_engine == "brick":
-        nb = knn(dpts, normals_k, points_valid=dvalid)
+        nb = knn(dpts, normals_k, points_valid=dvalid, live=live)
         normals, nvalid = pointcloud.estimate_normals(
             dpts, valid=dvalid, k=normals_k, neighbors=nb)
         feat, fvalid, n_overflow = features_brick.fpfh_brick(
@@ -121,7 +127,8 @@ def _preprocess(pts, valid, voxel: float, normals_k: int, fpfh_max_nn: int,
             max_cells=fpfh_max_cells)
         features_brick.emit_overflow_warning(n_overflow, nvalid.sum())
         return dpts, dvalid & nvalid & fvalid, normals, feat
-    nb = knn(dpts, max(normals_k, fpfh_max_nn), points_valid=dvalid)
+    nb = knn(dpts, max(normals_k, fpfh_max_nn), points_valid=dvalid,
+             live=live)
     normals, nvalid = pointcloud.estimate_normals(dpts, valid=dvalid,
                                                   k=normals_k, neighbors=nb)
     feat, fvalid = features.fpfh(dpts, normals, 5.0 * voxel, valid=nvalid,
@@ -135,17 +142,19 @@ def _anneal(it: int) -> tuple:
 
 
 def _register_edge(params: MergeParams, s_pts, s_val, s_feat, d_pts, d_val,
-                   d_nrm, d_feat, generator, hint):
+                   d_nrm, d_feat, generator, hint, live=None):
     """One ring edge, src onto dst: feature RANSAC → best of {RANSAC, hint,
     identity} by correspondence count at 4·voxel → annealed point-to-plane
     ICP → information matrix. Returns (T, fitness, rmse, info). With a
     leading edge axis E (every operand (E, ...), ``hint`` (E, 4, 4),
-    ``generator`` one a edge) the E edges run as one batch."""
+    ``generator`` one a edge) the E edges run as one batch. ``live`` (src,
+    dst) bounds the feature matching's sweep (``match_features``)."""
     v = params.voxel_size
     coarse = registration.ransac_feature_registration(
         s_pts, s_feat, d_pts, d_feat, distance_threshold=1.5 * v,
         src_valid=s_val, dst_valid=d_val,
-        num_iterations=params.ransac_iterations, generator=generator)
+        num_iterations=params.ransac_iterations, generator=generator,
+        live=live)
     eye = torch.eye(4, dtype=torch.float32, device=s_pts.device).expand(
         hint.shape)
     cands = torch.stack([coarse.transformation, hint, eye])
@@ -265,27 +274,31 @@ def _axis_prior_pass(params: MergeParams, xs, outs):
             torch.where(use2[:, None, None], info2, infos))
 
 
-def preprocess_registration_view(points, valid, params: MergeParams):
+def preprocess_registration_view(points, valid, params: MergeParams,
+                                 cells_only: bool = False):
     """One stop's registration preprocess (voxel → normals → FPFH), the
-    per-stop half of an incremental ring. Returns the ``(pts, valid,
-    normals, feat)`` tuple :func:`register_edge` consumes."""
+    per-stop half of an incremental ring (``cells_only``: see
+    :func:`_preprocess`). Returns the ``(pts, valid, normals, feat)``
+    tuple :func:`register_edge` consumes."""
     return _preprocess(points, valid, params.voxel_size, params.normals_k,
                        params.fpfh_max_nn, params.fpfh_engine,
-                       params.fpfh_slots, params.fpfh_max_cells)
+                       params.fpfh_slots, params.fpfh_max_cells, cells_only)
 
 
 def register_edge(src_prep, dst_prep, params: MergeParams,
-                  generator: torch.Generator, hint=None):
+                  generator: torch.Generator, hint=None, live=None):
     """One ring edge, src registered onto dst, from two
     :func:`preprocess_registration_view` tuples: the per-edge half of an
     incremental ring. ``hint`` (the previous edge's transform) joins the
-    candidate set. Returns ``(T, fitness, rmse, info)`` device tensors."""
+    candidate set; ``live`` (src, dst) bounds the feature matching's sweep
+    to the leading slots that hold each view's valid points. Returns
+    ``(T, fitness, rmse, info)`` device tensors."""
     s_pts, s_val, _, s_feat = src_prep
     d_pts, d_val, d_nrm, d_feat = dst_prep
     if hint is None:
         hint = torch.eye(4, dtype=torch.float32, device=s_pts.device)
     return _register_edge(params, s_pts, s_val, s_feat, d_pts, d_val, d_nrm,
-                          d_feat, generator, hint)
+                          d_feat, generator, hint, live)
 
 
 def register_chain(pre, pairs, params: MergeParams, seed: int = 0):
@@ -581,14 +594,18 @@ def register_pair(src_pts, src_valid, dst_pts, dst_valid,
                   generator: torch.Generator | None = None):
     """RANSAC-seeded point-to-plane ICP of src onto dst, the inner step of
     `merge_pro_360` (`server/processing.py:146-156`), on full-resolution
-    padded clouds (downsampled inside). Returns (RegistrationResult, 6×6
-    information matrix)."""
+    padded clouds (downsampled inside). The KNN and feature sweeps cover
+    only the downsampled cells (``cells_only``), the same result as over
+    every slot. Returns (RegistrationResult, 6×6 information matrix)."""
     if generator is None:
         generator = torch.Generator(device=src_pts.device)
         generator.manual_seed(0)
-    src = preprocess_registration_view(src_pts, src_valid, params)
-    dst = preprocess_registration_view(dst_pts, dst_valid, params)
-    T, fit, rmse, info = register_edge(src, dst, params, generator)
+    src = preprocess_registration_view(src_pts, src_valid, params,
+                                       cells_only=True)
+    dst = preprocess_registration_view(dst_pts, dst_valid, params,
+                                       cells_only=True)
+    T, fit, rmse, info = register_edge(src, dst, params, generator,
+                                       live=(_live(src[1]), _live(dst[1])))
     return registration.RegistrationResult(T, fit, rmse), info
 
 
@@ -606,6 +623,12 @@ def register_pair_clouds(src: ply_io.PointCloud, dst: ply_io.PointCloud,
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     return register_pair(s_pts, s_val, d_pts, d_val, params, generator=g)
+
+
+def _live(valid: torch.Tensor) -> int:
+    """The count of leading slots that holds every valid one."""
+    idx = torch.nonzero(valid)
+    return int(idx[-1, 0]) + 1 if len(idx) else 1
 
 
 def _auto_voxel(points: np.ndarray) -> float:

@@ -101,7 +101,8 @@ def _select(q, kp, kv, p2, k, k_tile):
 def knn(points: torch.Tensor, k: int, queries: torch.Tensor | None = None,
         points_valid: torch.Tensor | None = None,
         queries_valid: torch.Tensor | None = None,
-        exclude_self: bool = False, q_tile: int = 1024):
+        exclude_self: bool = False, q_tile: int = 1024,
+        live: tuple[int, int] | None = None):
     """k nearest points for each query (defaults: queries = points).
 
     Returns (sq_dists (M, k), indices (M, k) int64, neighbor_valid (M, k)),
@@ -110,7 +111,18 @@ def knn(points: torch.Tensor, k: int, queries: torch.Tensor | None = None,
     (distance reported as 0). With ``exclude_self`` the query's own index is
     dropped (Open3D's SOR convention). Leading batch axes — (..., N, D)
     points, (..., M, D) queries, each batch searched in its own points —
-    carry through to every output, the matrix products then batched."""
+    carry through to every output, the matrix products then batched.
+
+    ``live`` = (points, queries), for one unbatched cloud whose valid
+    points and queries all lie in those leading rows (a voxel-downsampled
+    cloud's cells come first): the sweep covers those rows alone, and every
+    row past them comes back neighbourless (index 0, distance 0, invalid).
+    The live rows are the dense sweep's bit for bit: the same tiles, less
+    trailing key tiles that hold only invalid keys (+inf), which never
+    displace a selection."""
+    if live is not None:
+        return _knn_live(points, k, queries, points_valid, queries_valid,
+                         exclude_self, q_tile, live)
     self_query = queries is None
     if self_query:
         queries, queries_valid = points, points_valid
@@ -150,3 +162,27 @@ def knn(points: torch.Tensor, k: int, queries: torch.Tensor | None = None,
     if queries_valid is not None:
         nb_valid = nb_valid & queries_valid[..., :n_q, None]
     return torch.where(finite, d, torch.zeros((), device=d.device)), i, nb_valid
+
+
+def _knn_live(points, k, queries, points_valid, queries_valid, exclude_self,
+              q_tile, live):
+    """:func:`knn` over the ``live`` leading rows, the rest padded."""
+    if points.dim() != 2:
+        raise ValueError("knn: live takes one unbatched cloud")
+    self_query = queries is None
+    n_p, n_q = (max(1, int(n)) for n in live)
+    if self_query:
+        if n_p != n_q:
+            raise ValueError(f"knn: a self-query's live counts differ {live}")
+        queries_valid = points_valid
+    full = (points if self_query else queries).shape[0]
+    d, i, v = knn(points[:n_p], k,
+                  None if self_query else queries[:n_q],
+                  None if points_valid is None else points_valid[:n_p],
+                  None if queries_valid is None or self_query
+                  else queries_valid[:n_q],
+                  exclude_self, q_tile)
+    pad = full - d.shape[0]
+    return (torch.cat([d, d.new_zeros(pad, d.shape[1])]),
+            torch.cat([i, i.new_zeros(pad, i.shape[1])]),
+            torch.cat([v, v.new_zeros(pad, v.shape[1])]))

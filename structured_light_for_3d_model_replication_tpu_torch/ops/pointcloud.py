@@ -153,6 +153,13 @@ def statistical_outlier_removal(points: torch.Tensor,
         valid = torch.ones(n, dtype=torch.bool, device=points.device)
     d2, _, nbv = _self_knn(points, nb_neighbors, valid, True,
                            neighbor_method)
+    return sor_keep(d2, nbv, valid, std_ratio)
+
+
+def sor_keep(d2, nbv, valid, std_ratio: float = 2.0):
+    """The keep mask of :func:`statistical_outlier_removal` from its
+    neighbour sweep (squared distances ``d2`` and validity ``nbv``, both
+    (N, k)): the 2σ rule over the per-point mean distances."""
     d = torch.sqrt(d2)
     cnt = nbv.sum(1)
     mean_d = torch.where(nbv, d, torch.zeros((), device=d.device)).sum(1) \

@@ -196,18 +196,23 @@ def _triplet_rigid(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 def match_features(src_feat: torch.Tensor, dst_feat: torch.Tensor,
                    src_valid: torch.Tensor | None = None,
                    dst_valid: torch.Tensor | None = None,
-                   mutual: bool = True):
+                   mutual: bool = True,
+                   live: tuple[int, int] | None = None):
     """Nearest-neighbour correspondence per source feature (33-D exact KNN).
     Returns (dst_index (N,), corr_valid (N,)), each (E, N) with a leading
     edge axis; ``mutual`` keeps only pairs that are each other's nearest
-    neighbours."""
+    neighbours. ``live`` = (src, dst) counts of the leading rows that hold
+    every valid feature (``knn``'s ``live``): the rows past them come back
+    unmatched."""
     _, idx_sd, v_sd = knn(dst_feat, 1, queries=src_feat,
-                          points_valid=dst_valid, queries_valid=src_valid)
+                          points_valid=dst_valid, queries_valid=src_valid,
+                          live=None if live is None else live[::-1])
     nn = idx_sd[..., 0]
     ok = v_sd[..., 0]
     if mutual:
         _, idx_ds, v_ds = knn(src_feat, 1, queries=dst_feat,
-                              points_valid=src_valid, queries_valid=dst_valid)
+                              points_valid=src_valid, queries_valid=dst_valid,
+                              live=live)
         back = torch.gather(idx_ds[..., 0], -1, nn)
         ok = ok & torch.gather(v_ds[..., 0], -1, nn) & (back == torch.arange(
             src_feat.shape[-2], device=back.device))
@@ -314,16 +319,19 @@ def ransac_feature_registration(src_pts, src_feat, dst_pts, dst_feat,
                                 edge_length_ratio: float = 0.9,
                                 num_iterations: int = 100_000,
                                 batch: int = 8192, ransac_n: int = 3,
-                                generator=None) -> RegistrationResult:
+                                generator=None,
+                                live: tuple[int, int] | None = None
+                                ) -> RegistrationResult:
     """Global registration à la
     ``registration_ransac_based_on_feature_matching`` (1.5·voxel threshold,
     edge-length 0.9, 100k iterations). Every hypothesis runs — no early
     confidence exit (equivalent to confidence = 1.0). With a leading edge
-    axis, ``generator`` is one ``torch.Generator`` an edge."""
+    axis, ``generator`` is one ``torch.Generator`` an edge. ``live`` goes
+    to :func:`match_features`."""
     src_pts = src_pts.to(torch.float32)
     dst_pts = dst_pts.to(torch.float32)
     corr_idx, corr_ok = match_features(src_feat, dst_feat, src_valid,
-                                       dst_valid, mutual=mutual)
+                                       dst_valid, mutual=mutual, live=live)
     if src_valid is not None:
         corr_ok = corr_ok & src_valid
     return _ransac_core(generator, src_pts, dst_pts, corr_idx, corr_ok,

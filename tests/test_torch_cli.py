@@ -145,7 +145,18 @@ def test_unported_tool_exits_2_naming_its_step(tool, step, capsys):
     """A tool whose modules the port lacks exits 2 and names its ROADMAP
     step, without importing a module to find out; ``serve`` is ported, and
     its multi-card option (``--devices 2``) exits 2 naming step 4(c).
-    ``diagnose`` is ported (tests/test_torch_diagnose.py)."""
+    ``scan`` and ``view`` came with step 5's capture-and-view half: their
+    ``--help`` now exits 0 (tests/test_torch_hw_scanner.py and
+    tests/test_torch_viz.py run them). ``diagnose`` is ported
+    (tests/test_torch_diagnose.py)."""
+    if tool in ("scan", "view"):
+        with pytest.raises(SystemExit) as e:
+            cli.main([tool, "--help"])
+        assert e.value.code == 0
+        out, err = capsys.readouterr()
+        assert f"usage: {tool}" in out and "not ported" not in err
+        assert (tool == "view") == ("--device" in out)
+        return
     flags = ["--devices", "2"] if tool == "serve" else ["--help"]
     assert cli.main([tool, *flags]) == 2
     err = capsys.readouterr().err

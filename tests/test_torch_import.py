@@ -73,7 +73,10 @@ def test_every_port_module_imports_without_jax():
                  "serve.blobstore", "serve.store", "serve.client",
                  "serve.cache", "serve.worker", "serve.lanes",
                  "serve.sessions", "serve.service", "serve.fleet",
-                 "serve.router", "cli.diagnose"):
+                 "serve.router", "cli.diagnose", "hw.camera",
+                 "hw.command_server", "hw.projector", "hw.rig",
+                 "hw.turntable", "scanner", "viz", "gui", "cli.scan",
+                 "cli.view"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -107,6 +110,26 @@ def test_entry_modules_do_not_load_kernel_bindings():
         assert not loaded, loaded
         # Importing the native bindings builds nothing.
         assert _native._lib is None and not _native._tried
+    """)
+
+
+def test_capture_and_view_modules_load_no_optional_imports():
+    """The capture loop and the viewer import nothing optional: no
+    ``tkinter`` (the GUI builds its root in ``main``), no ``cv2`` (the
+    window projector and the webcam import it in their constructors), no
+    ``serial`` (the ESP32 driver's constructor), no JAX, no kernel
+    bindings."""
+    _run(f"""
+        import sys
+        from {PORT} import gui, hw, scanner, viz
+        from {PORT}.cli import scan, view
+        from {PORT}.hw import (camera, command_server, projector, rig,
+                               turntable)
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("tkinter", "_tkinter", "cv2", "serial", "jax", "triton")
+               or m.startswith("{PORT}.kernels")
+               or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")]
+        assert not bad, bad
     """)
 
 

@@ -107,6 +107,35 @@ def test_stl_round_trip_and_interchange(tmp_path, binary):
         jstl.TriangleMesh(v, f).compute_vertex_normals())
 
 
+@pytest.mark.parametrize("case", ["grid", "signed zeros", "nan"])
+def test_read_stl_merges_vertices_as_jax_does(tmp_path, case):
+    """The STL reader's integer-key merge (and its fallback to
+    ``np.unique`` where ±0 or a NaN leaves the representative to the sort)
+    gives the JAX reader's vertices and faces bit for bit: a grid with
+    shared, negative and repeated coordinates, then one with a row of
+    signed zeros or a NaN vertex."""
+    rng = np.random.default_rng(3)
+    g = rng.integers(-4, 5, size=(3000, 3)).astype(np.float32) * 0.5
+    g[:, 1] += rng.integers(0, 2, 3000).astype(np.float32) * 1e-3
+    if case == "signed zeros":
+        g[::7, 0] = np.where(np.arange(len(g[::7])) % 2, 0.0, -0.0)
+        g[::7, 2] = 0.0
+    elif case == "nan":
+        g[5] = np.nan
+    path = str(tmp_path / "g.stl")
+    with open(path, "wb") as fh:
+        rec = np.zeros(1000, stl._BIN_DT)
+        rec["v0"], rec["v1"], rec["v2"] = g[0::3], g[1::3], g[2::3]
+        fh.write(b"\0" * 80 + np.uint32(1000).tobytes() + rec.tobytes())
+    flat = g.reshape(-1, 3)
+    assert (stl._merge_rows(flat) is None) == (case != "grid")
+    back, other = stl.read_stl(path), jstl.read_stl(path)
+    np.testing.assert_array_equal(back.vertices.view(np.uint32),
+                                  other.vertices.view(np.uint32))
+    np.testing.assert_array_equal(back.faces, other.faces)
+    assert len(back.vertices) < len(flat)
+
+
 def test_orient_normals_matches_jax():
     pts, nrm = _spheres(2000, 1)
     flip = np.random.default_rng(2).random(2000) > 0.5

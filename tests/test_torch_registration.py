@@ -11,6 +11,10 @@ direct difference, the JAX CPU path the matmul expansion); information
 matrices to 2e-5 of their largest entry (float32 sums of ~2·10³ terms of
 up to 2.5·10⁵ mm² each, taken in another order, so the small off-diagonal
 entries carry the large ones' rounding).
+
+The sweeps bounded to a cloud's leading live rows (``knn``'s ``live``,
+``register_pair``'s cells-only preprocess) are held to the port's own
+dense sweeps, bit for bit.
 """
 
 import jax
@@ -227,3 +231,100 @@ def test_information_matrix_matches_jax(pair):
     assert got.shape == (6, 6)
     ref = np.asarray(ref)
     assert np.abs(got.numpy() - ref).max() <= 2e-5 * np.abs(ref).max()
+
+
+def _cells(pair):
+    """The pair's two surfaces padded to 4,096 slots and voxel-downsampled
+    at 2 mm: every valid cell in the leading slots, as
+    ``register_pair`` gives them to its sweeps."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud,
+    )
+
+    out = []
+    for pts, valid in ((pair["src"], pair["sv"]), (pair["dst"], pair["dv"])):
+        p, v = merge._pad_cloud(pts[valid], "cpu")
+        p = torch.cat([p, p.new_zeros((4096 - len(p), 3))])
+        v = torch.cat([v, v.new_zeros(4096 - len(v))])
+        dpts, _, dvalid, n = pointcloud.voxel_downsample(p, 2.0, valid=v)
+        out.append((p, v, dpts, dvalid, int(n)))
+    return out
+
+
+@pytest.mark.parametrize("k,exclude_self", [(30, False), (20, True), (1, False)])
+def test_knn_live_rows_equal_the_dense_sweep(pair, k, exclude_self):
+    """A self-query bounded to the downsampled cells gives the dense
+    sweep's rows bit for bit, and every row past them neighbourless."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops.knn import (
+        knn,
+    )
+
+    (_, _, dpts, dvalid, n), _ = _cells(pair)
+    assert 0 < n < len(dpts) // 2 and not dvalid[n:].any()
+    dense = knn(dpts, k, points_valid=dvalid, exclude_self=exclude_self)
+    live = knn(dpts, k, points_valid=dvalid, exclude_self=exclude_self,
+               live=(n, n))
+    for a, b in zip(dense, live):
+        assert a.shape == b.shape
+        assert torch.equal(a[:n], b[:n])
+    assert not live[2][n:].any() and not dense[2][n:].any()
+
+
+def test_match_features_live_equals_the_dense_sweep(rng):
+    """Mutual matching over the leading live rows of two feature sets
+    (holes among them, nothing valid past them) equals the full sweep."""
+    base = rng.random((3000, 33)).astype(np.float32)
+    src = torch.from_numpy(base + rng.normal(0, 0.01, base.shape)
+                           .astype(np.float32))
+    dst = torch.from_numpy(base[rng.permutation(3000)])
+    sv = torch.from_numpy(rng.random(3000) > 0.1)
+    dv = torch.from_numpy(rng.random(3000) > 0.1)
+    sv[1100:] = False
+    dv[900:] = False
+    nn, ok = registration.match_features(src, dst, sv, dv)
+    lnn, lok = registration.match_features(src, dst, sv, dv,
+                                           live=(1100, 900))
+    assert torch.equal(ok, lok) and ok.sum() > 100
+    assert torch.equal(nn[ok], lnn[ok])
+
+
+def test_register_pair_sweeps_only_the_cells(rng):
+    """``register_pair`` (its KNN and feature sweeps over the cells alone)
+    gives the transform, fitness, rmse and information matrix of the same
+    registration swept over every slot, bit for bit: a lopsided sphere
+    onto itself turned 12° and shifted 8 mm, padded to twice its points,
+    at the defaults of ``cli view --icp`` but 8,192 RANSAC draws."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        merge,
+    )
+
+    a = rng.normal(size=(1500, 3))
+    a = 50.0 * a / np.linalg.norm(a, axis=1, keepdims=True)
+    a[:200, 1] *= 1.6
+    T_true = _rigid(_rot([0.0, 1.0, 0.0], 12.0), [8.0, 0.0, 0.0])
+    b = a @ T_true[:3, :3].T.astype(np.float64) + T_true[:3, 3]
+    clouds = []
+    for pts in (a, b):
+        p, v = merge._pad_cloud(pts.astype(np.float32), "cpu")
+        clouds += [torch.cat([p, p.new_zeros((3072 - len(p), 3))]),
+                   torch.cat([v, v.new_zeros(3072 - len(v))])]
+    params = merge.MergeParams(voxel_size=merge._auto_voxel(a),
+                               ransac_iterations=8192)
+    g = torch.Generator()
+    g.manual_seed(0)
+    res, info = merge.register_pair(*clouds, params, generator=g)
+    g = torch.Generator()
+    g.manual_seed(0)
+    sp, sv, dp, dv = clouds
+    dense = merge.register_edge(
+        merge.preprocess_registration_view(sp, sv, params),
+        merge.preprocess_registration_view(dp, dv, params), params, g)
+    for x, y in zip((res.transformation, res.fitness, res.inlier_rmse,
+                     info), dense):
+        assert torch.equal(x, y)
+    T = res.transformation.numpy()
+    assert float(res.fitness) > 0.9
+    assert _angle_deg(T[:3, :3].T @ T_true[:3, :3]) < 0.5

@@ -534,7 +534,10 @@ def test_fleet_chaos_on_cpu(monkeypatch):
     ``--recover`` — holds every assertion of bench config 10 and the
     port's own (the adopted session's PLY bit-equal to an uninterrupted
     one, the diagnose bundle's members), within 120 s. The replicas run
-    one thread each; an unknown job is resubmitted after 5 s."""
+    one thread each; an unknown job is resubmitted after 5 s. The burst
+    is 16 jobs, not the bench's 4: the victim runs 2 of 4 before its kill
+    on a quiet host and can run all 4 on a loaded one, and the bench's
+    "≥ 1 recovered" needs one left."""
     smoke = _chip_smoke()
 
     def fail(msg):
@@ -544,7 +547,7 @@ def test_fleet_chaos_on_cpu(monkeypatch):
     t0 = time.monotonic()
     out = smoke.fleet_chaos(torch.device("cpu"), load_s=10.0,
                             env={"OMP_NUM_THREADS": "1"}, start_s=60.0,
-                            resubmit_s=5.0)
+                            resubmit_s=5.0, burst_jobs=16)
     assert time.monotonic() - t0 < 120.0
     assert all(out["checks"].values()), out["checks"]
     assert out["proactive_repins_before_first_op"] >= 1
