@@ -6,7 +6,7 @@ session and its splat appearance tier (rendered novel views), through
 the cleanup path of a single capture, the command-line tools on a session
 captured by the virtual rig, the capture loop and the viewer, the
 calibration, one serving replica and a fleet of three behind the router,
-with its CUDA kernels.
+with its CUDA kernels; then its lint and its native bindings.
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
@@ -15,6 +15,7 @@ with its CUDA kernels.
     python3 chip_smoke.py --serve-only     # build + the serve phase only
     python3 chip_smoke.py --fleet-only     # build + the fleet phase only
     python3 chip_smoke.py --capture-only   # build + the capture loop (8f)
+    python3 chip_smoke.py --lint-only      # build + files phase + lint (8g)
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -193,6 +194,23 @@ Phases, in order; any failure exits non-zero before the result line:
    each PNG non-empty, the outlier mask equal to the same
    sweep's on the host by the kernel's plain version, and the tool's PNG
    to the host mask's render;
+8g. the lint and the native bindings (``--lint-only``: build, the ring's
+   render, the files phase, this phase), after the fleet, each step with
+   its seconds and no kernel launch: (a) ``python -m <port>.cli lint`` in a
+   subprocess on this checkout, which must exit 0, then on a scratch tree
+   of one bad fixture per rule (the ten that ``--list-rules`` lists),
+   which must exit 1 naming each; (b) the port's native library, built
+   from ``native/src`` with ``g++ -march=native`` on this host at its
+   first use in the run (the files phase's ``mesh --mode surface``):
+   ``grid_knn`` at k = 20 on a seeded 65,536-point subsample of the files
+   phase's stop 0 cloud against the exact dense KNN on the card (brute
+   force over direct differences: ``ops/knn.knn``'s matmul expansion
+   reorders near neighbours at the cloud's ~700 mm offset) —
+   ``sqrt(d2)`` within 1e-4 (tests/test_native.py's ``atol``), indices
+   equal except at tied distances, the rows and the ties printed — then
+   ``ply_write`` of the merged cloud read back by ``io/ply.read_ply`` and
+   ``stl_write`` of the cleanup's depth-10 mesh read back by
+   ``io/stl.read_stl``, both equal to what was written;
 9. each phase's wall seconds and the total on one line, a ``kernels`` JSON
    line (``matvec_band`` and ``classify_bricks`` also carry their numbers
    on 3d's band and each deep row's launches under ``deep_3d``; every
@@ -3127,7 +3145,8 @@ def files_path(dev, ring) -> tuple[dict, dict]:
     ``read-calib``; the JPEG fixture through ``process-cloud``; then ``cli
     view`` (``view_modes``, phase 8f (e)). Returns ({kernel: {tool:
     launches}}, the capture's numbers with the views' launches under
-    ``"views"``)."""
+    ``"views"`` and, under ``"outputs"``, what phase 8g reads: the stop 0
+    cloud's points, the merged cloud and the cleanup's mesh)."""
     import tempfile
 
     from structured_light_for_3d_model_replication_tpu_torch.cli import (
@@ -3241,9 +3260,10 @@ def files_path(dev, ring) -> tuple[dict, dict]:
                 "--remove-background", "--remove-outliers", "--depth",
                 "10"])
         keep("mesh --remove-outliers", launches)
-        print(f"files: stop 0 cloud {len(ply.read_ply(stop_ply))} points; "
-              f"cleaned mesh {len(read_stl(os.path.join(tmp, 'clean.stl')).faces)}"
-              f" faces", flush=True)
+        stop0 = ply.read_ply(stop_ply)
+        clean = read_stl(os.path.join(tmp, "clean.stl"))
+        print(f"files: stop 0 cloud {len(stop0)} points; cleaned mesh "
+              f"{len(clean.faces)} faces", flush=True)
         if launches["brick_knn_cells"] <= 0:
             fail("cli mesh --remove-outliers never launched brick_knn_cells")
 
@@ -3285,6 +3305,8 @@ def files_path(dev, ring) -> tuple[dict, dict]:
         captured["views"] = view_modes(dev, tmp, merged_ply,
                                        (stop_ply, stop1_ply),
                                        os.path.join(tmp, "clean.stl"))
+        captured["outputs"] = dict(stop0=stop0.points, merged=merged,
+                                   clean=clean)
     print(f"files: kernel launches by tool {tally}", flush=True)
     missing = [k for k in tool_counters() if k not in tally]
     if missing:
@@ -5853,6 +5875,246 @@ def capture_path(dev, ring) -> dict:
     return out
 
 
+# One triggering fixture per port lint rule (phase 8g (a)): relative path
+# (the rules scope by it) and source.
+LINT_FIXTURES = {
+    "kernel-import": ("ops/kernel_import.py", """
+        from ..kernels import build
+        """),
+    "foreign-import": ("io/foreign_import.py", """
+        import jax
+        """),
+    "host-read": ("models/host_read.py", """
+        def pull(t):
+            return t.numpy()
+        """),
+    "implicit-dtype": ("ops/implicit_dtype.py", """
+        import torch
+
+        def f(x):
+            return torch.as_tensor(x)
+        """),
+    "implicit-rng": ("ops/implicit_rng.py", """
+        import torch
+
+        def pick(n):
+            return torch.randperm(n)
+        """),
+    "atomic-scatter": ("ops/atomic_scatter.py", """
+        def accumulate(out, idx, val):
+            return out.index_add_(0, idx, val)
+        """),
+    "silent-except": ("hw/silent_except.py", """
+        def probe(open_port):
+            try:
+                return open_port()
+            except Exception:
+                pass
+        """),
+    "lock-order": ("serve/lock_order.py", """
+        import threading
+
+        class S:
+            def __init__(self):
+                self._la = threading.Lock()
+                self._lb = threading.Lock()
+
+            def one(self):
+                with self._la:
+                    with self._lb:
+                        pass
+
+            def two(self):
+                with self._lb:
+                    with self._la:
+                        pass
+        """),
+    "blocking-under-lock": ("serve/blocking.py", """
+        import threading
+
+        class C:
+            def __init__(self):
+                self._lock = threading.Lock()
+
+            def load(self, path):
+                with self._lock:
+                    return open(path).read()
+        """),
+    "unlocked-shared-state": ("serve/shared_state.py", """
+        import threading
+
+        SHARED = {}
+
+        def worker():
+            SHARED["k"] = 1
+
+        def spawn():
+            threading.Thread(target=worker).start()
+
+        def main_path():
+            SHARED["j"] = 2
+        """),
+}
+GRID_KNN_ROWS = 65_536         # the seeded subsample of stop 0's cloud
+GRID_KNN_K = 20                # the cleanup's SOR k
+GRID_KNN_SEED = 15
+GRID_KNN_ATOL = 1e-4           # tests/test_native.py:24
+
+
+def cli_lint(*args: str) -> tuple[int, str, float]:
+    """``python -m <port>.cli lint *args`` in a subprocess from this
+    checkout: (exit code, standard output + error, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "structured_light_for_3d_model_replication_tpu_torch.cli", "lint",
+         *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300, check=False)
+    return proc.returncode, proc.stdout + proc.stderr, \
+        time.perf_counter() - t0
+
+
+def lint_native_path(dev, outputs) -> dict:
+    """Phase 8g: the port's lint and its native bindings. (a) ``cli lint``
+    on this checkout must exit 0; on a scratch tree of one bad fixture per
+    rule (``LINT_FIXTURES``, which must name every rule ``--list-rules``
+    lists) it must exit 1 naming each. (b) The native library (built from
+    ``native/src`` with ``g++ -march=native`` on this host at its first use
+    in the run): ``grid_knn`` at k = 20 on a seeded 65,536-point subsample
+    of the files phase's stop 0 cloud against the exact dense KNN on
+    ``dev`` (``brute_knn``: direct differences, since the matmul expansion
+    of ``ops/knn.knn`` reorders near neighbours at the cloud's ~700 mm
+    offset; ``sqrt(d2)`` within 1e-4, indices equal except at tied
+    distances), ``ply_write`` of the merged cloud read back by
+    ``io/ply.read_ply`` and ``stl_write`` of the cleanup's mesh read back
+    by ``io/stl.read_stl``, both equal. No kernel may launch. Returns the
+    steps' seconds."""
+    import tempfile
+    import textwrap
+
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch import _native
+    from structured_light_for_3d_model_replication_tpu_torch.io import ply
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        read_stl,
+    )
+    counters = tool_counters()
+    _sync(dev)
+    for c in counters.values():
+        c.launches = 0
+    secs = {}
+
+    rc, out, secs["lint the checkout"] = cli_lint()
+    summary = out.strip().splitlines()[-1] if out.strip() else ""
+    print(f"lint+native: cli lint of the checkout: rc {rc}, "
+          f"{secs['lint the checkout']:.2f} s; {summary}", flush=True)
+    if rc != 0:
+        fail(f"cli lint of the checkout exited {rc}:\n{out}")
+    rc, out, _ = cli_lint("--list-rules")
+    rules = {line.split(" ")[0] for line in out.splitlines() if line}
+    if rc != 0 or rules != set(LINT_FIXTURES):
+        fail(f"cli lint --list-rules: rc {rc}, rules {sorted(rules)} against "
+             f"the fixtures' {sorted(LINT_FIXTURES)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for rel, src in LINT_FIXTURES.values():
+            path = os.path.join(tmp, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(textwrap.dedent(src))
+        rc, out, secs["lint the fixtures"] = cli_lint(tmp)
+    named = {r for r in LINT_FIXTURES if f"[{r}]" in out}
+    print(f"lint+native: cli lint of {len(LINT_FIXTURES)} bad fixtures: rc "
+          f"{rc}, {secs['lint the fixtures']:.2f} s; rules named "
+          f"{len(named)} of {len(LINT_FIXTURES)}", flush=True)
+    if rc != 1 or named != set(LINT_FIXTURES):
+        fail(f"cli lint of the bad fixtures: rc {rc}, missing "
+             f"{sorted(set(LINT_FIXTURES) - named)}:\n{out}")
+
+    t0 = time.perf_counter()
+    if not _native.available():
+        fail("the port's native library did not build or load")
+    secs["native library"] = time.perf_counter() - t0
+    built = _native.build_seconds
+    print(f"lint+native: native library {_native.library_path().name}: "
+          + (f"built by g++ in {built:.2f} s in this run" if built is not None
+             else "already built (not in this run)"), flush=True)
+
+    pts_all = np.asarray(outputs["stop0"], np.float32)
+    rng = np.random.default_rng(GRID_KNN_SEED)
+    rows = min(GRID_KNN_ROWS, len(pts_all))
+    pts = np.ascontiguousarray(pts_all[np.sort(rng.choice(
+        len(pts_all), rows, replace=False))])
+    t0 = time.perf_counter()
+    d2, idx = _native.grid_knn(pts, GRID_KNN_K)
+    secs["grid_knn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pts_t = torch.from_numpy(pts).to(dev)
+    dd, di = brute_knn(pts_t, torch.ones(rows, dtype=torch.bool, device=dev),
+                       GRID_KNN_K, True, torch.arange(rows, device=dev))
+    _sync(dev)
+    secs["dense knn"] = time.perf_counter() - t0
+    dd, di = dd.cpu().numpy(), di.cpu().numpy()
+    err = float(np.abs(np.sqrt(d2) - np.sqrt(dd)).max())
+    r, c = np.nonzero(idx != di)
+    p64 = pts.astype(np.float64)
+    a = np.linalg.norm(p64[r] - p64[idx[r, c]], axis=1)
+    b = np.linalg.norm(p64[r] - p64[di[r, c]], axis=1)
+    # A tie: the two candidates' float64 distances agree within the
+    # tolerance (each side rounds its float32 d², so among such near-equal
+    # candidates either may come first).
+    gap = np.abs(a - b)
+    ties = int((gap <= GRID_KNN_ATOL).sum())
+    print(f"lint+native: grid_knn k = {GRID_KNN_K} on {rows} rows of stop "
+          f"0's {len(pts_all)} points in {secs['grid_knn']:.3f} s; the exact "
+          f"dense KNN on {dev} {secs['dense knn']:.3f} s; max |sqrt(d2) - "
+          f"dense| "
+          f"{err:.3g}; {len(r)} index differences, {ties} of them at "
+          f"distances tied within {GRID_KNN_ATOL:g} (largest gap "
+          f"{gap.max() if len(r) else 0.0:.3g})", flush=True)
+    if rows != GRID_KNN_ROWS or err > GRID_KNN_ATOL or ties != len(r) \
+            or (idx < 0).any():
+        fail(f"grid_knn against the dense KNN: {rows} rows, max error "
+             f"{err:.3g}, {len(r) - ties} untied index differences")
+
+    merged, mesh = outputs["merged"], outputs["clean"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "merged.ply")
+        _native.ply_write(path, merged.points, colors=merged.colors,
+                          normals=merged.normals)
+        back = ply.read_ply(path)
+        secs["ply round trip"] = time.perf_counter() - t0
+        same = {f: getattr(merged, f) is not None and np.array_equal(
+            getattr(back, f), getattr(merged, f))
+            for f in ("points", "colors", "normals")}
+        print(f"lint+native: ply_write of the merged cloud ({len(merged)} "
+              f"points, {os.path.getsize(path)} bytes) read back in "
+              f"{secs['ply round trip']:.3f} s: equal {same}", flush=True)
+        if not all(same.values()):
+            fail(f"ply_write → read_ply differs: {same}")
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "clean.stl")
+        _native.stl_write(path, mesh.vertices, mesh.faces)
+        back = read_stl(path)
+        secs["stl round trip"] = time.perf_counter() - t0
+        same = {"vertices": np.array_equal(back.vertices, mesh.vertices),
+                "faces": np.array_equal(back.faces, mesh.faces)}
+        print(f"lint+native: stl_write of the cleanup mesh ({len(mesh.faces)}"
+              f" faces, {os.path.getsize(path)} bytes) read back in "
+              f"{secs['stl round trip']:.3f} s: equal {same}", flush=True)
+        if not all(same.values()):
+            fail(f"stl_write → read_stl differs: {same}")
+
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    if launched:
+        fail(f"phase 8g launched kernels {launched}")
+    print("lint+native: seconds " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()), flush=True)
+    return secs
+
+
 class PhaseClock:
     """Wall seconds of the run's phases: ``with clock("name"):`` prints
     the phase's seconds when it ends; ``report()`` prints all of them and
@@ -5904,6 +6166,9 @@ def main() -> int:
                          "and cli scan (8f b-d), then the files phase on "
                          "the virtual auto-scan with cli view (8f a, e; no "
                          "result line)")
+    ap.add_argument("--lint-only", action="store_true",
+                    help="build, render the ring, the files phase, then the "
+                         "lint and native phase (8g; no result line)")
     ap.add_argument("--fleet-only", action="store_true",
                     help="build, then the fleet phase only (bench config "
                          "10: three replica processes behind the router; "
@@ -5971,6 +6236,16 @@ def main() -> int:
             fleet_path(dev)
         clock.report()
         return 0
+    if args.lint_only:
+        with clock("render the ring"):
+            ring = files_ring(dev)
+        with clock("files (8b) with the capture (8f a, e)"):
+            _, captured = files_path(dev, ring)
+        del ring
+        with clock("lint and native (8g)"):
+            lint_native_path(dev, captured["outputs"])
+        clock.report()
+        return 0
     with clock("kernel checks (3)"):
         band = sphere_band(dev)
         kernels = [check_decode(dev), check_nearest_one(dev),
@@ -6028,6 +6303,8 @@ def main() -> int:
     del ring
     with clock("fleet (8e)"):
         fleet = fleet_path(dev)
+    with clock("lint and native (8g)"):
+        lint_native_path(dev, captured.pop("outputs"))
     for k in kernels:
         name = k["name"].replace("_batched", "")
         k["launches"] = launches[k["name"]]

@@ -21,12 +21,14 @@ PLY and a printable STL out — on the card.
                    `Old/StatisticalOutlierRemoval.py:66-71`)
 ``diagnose``       support bundle: health + metrics + flight journal +
                    Perfetto spans + env manifest in one tarball
+``lint``           torchlint, the port's static analysis (``analysis/``):
+                   PyTorch-on-a-card and concurrency hazards, default path
+                   the port's package
 ================  ===========================================================
 
 Every tool that computes takes ``--device`` (default ``cuda``; ``cpu`` runs
-the plain PyTorch path on the host); ``scan`` and ``read-calib`` compute
-nothing on a device and take none. ``lint`` is not ported yet: it exits
-with code 2 and names the ROADMAP step that brings it.
+the plain PyTorch path on the host); ``scan``, ``read-calib`` and ``lint``
+compute nothing on a device and take none.
 
 Invoke via ``python -m structured_light_for_3d_model_replication_tpu_torch.cli
 <tool> [args]``.
@@ -52,9 +54,7 @@ _TOOLS = {
 
 # Tools whose modules the port does not have yet, with the ROADMAP Queue 1
 # step that brings them.
-_NOT_PORTED = {
-    "lint": "step 5(b) (the lazy-import rule, analysis/)",
-}
+_NOT_PORTED: dict[str, str] = {}
 
 
 def main(argv: list[str] | None = None) -> int:

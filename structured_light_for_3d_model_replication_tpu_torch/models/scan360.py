@@ -121,6 +121,7 @@ class _Stager:
                                    dtype=torch.uint8, pin_memory=True)
         elif self.done is not None:
             self.done.synchronize()
+        # torchlint: disable=host-read -- the pinned host buffer
         host = self.buf.numpy()
         for i in range(self.chunk):
             host[i] = stops[min(i, k - 1)]
@@ -389,6 +390,7 @@ def _readback(*tensors) -> list[np.ndarray]:
     out, o = [], 0
     for t in tensors:
         nb = t.numel() * t.element_size()
+        # torchlint: disable=host-read -- a host scalar, for its dtype
         dt = torch.empty((), dtype=t.dtype).numpy().dtype
         out.append(host[o:o + nb].view(dt).reshape(tuple(t.shape)))
         o += nb

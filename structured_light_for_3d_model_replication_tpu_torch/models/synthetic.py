@@ -12,6 +12,7 @@ is simulated by rotating the spheres about a vertical axis through a pivot.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 
@@ -165,6 +166,7 @@ def pattern_frames(proj: ProjectorConfig) -> np.ndarray:
     """The projector's protocol-ordered Gray-code frames as a host array."""
     from ..ops.patterns import pattern_stack_for
 
+    # torchlint: disable=host-read -- made on the host (device="cpu")
     return pattern_stack_for(proj, device="cpu").numpy()
 
 
@@ -194,6 +196,15 @@ def render_turntable_scans(scene: Scene, n_stops: int,
     return [render_scan(rotated_scene(scene, k * degrees_per_stop), cam_K,
                         proj_K, R, T, cam_height, cam_width, proj, frames)
             for k in range(n_stops)]
+
+
+# numpy's OpenBLAS (seen with 0.3.27) returns wrong products when several
+# threads call it at once: calibration poses rendered in a thread pool came
+# out with pixels off by up to 81 grey levels, and a calibration solved on
+# such poses to 11 px rms. The pose's matrix products take this lock, so a
+# render in a thread equals the sequential one bit for bit (and the JAX
+# package's, which renders one pose at a time).
+_PRODUCTS_LOCK = threading.Lock()
 
 
 def render_calibration_pose(
@@ -237,14 +248,19 @@ def render_calibration_pose(
     K_ss[0, 2] += (s - 1) / 2.0
     K_ss[1, 2] += (s - 1) / 2.0
     hs, ws = cam_height * s, cam_width * s
-    rays = camera_rays_np(K_ss, hs, ws).reshape(-1, 3)
-    n = board_R[:, 2]  # board plane normal in camera frame
-    denom = rays @ n
-    ok = np.abs(denom) > 1e-9
-    t_hit = np.where(ok, (board_t @ n) / np.where(ok, denom, 1.0), np.inf)
-    ok &= t_hit > 1e-6
-    points = t_hit[:, None] * rays
-    local = (points - board_t[None, :]) @ board_R  # board coords
+    with _PRODUCTS_LOCK:
+        rays = camera_rays_np(K_ss, hs, ws).reshape(-1, 3)
+        n = board_R[:, 2]  # board plane normal in camera frame
+        denom = rays @ n
+        ok = np.abs(denom) > 1e-9
+        t_hit = np.where(ok, (board_t @ n) / np.where(ok, denom, 1.0),
+                         np.inf)
+        ok &= t_hit > 1e-6
+        points = t_hit[:, None] * rays
+        local = (points - board_t[None, :]) @ board_R  # board coords
+        # Projector coordinates of every board point (same math as
+        # render_scan).
+        P_p = points @ R.T + T[None, :]
     bx, by = local[:, 0], local[:, 1]
 
     # Checker field spans one square beyond the inner-corner grid on each
@@ -260,8 +276,6 @@ def render_calibration_pose(
                       np.where(in_margin, 0.92, 0.0))
     hit = in_checker | in_margin
 
-    # Projector coordinates of every board point (same math as render_scan).
-    P_p = points @ R.T + T[None, :]
     z = P_p[:, 2]
     ok_z = z > 1e-6
     u = np.where(ok_z, (proj_K[0, 0] * P_p[:, 0] + proj_K[0, 2] * z)

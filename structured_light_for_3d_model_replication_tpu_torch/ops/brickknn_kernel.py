@@ -169,11 +169,13 @@ def _occupancy(cid_sorted, n: int):
     firstp = torch.cat([cid_sorted[:1] < _BIG,
                         (cid_sorted[1:] != cid_sorted[:-1]) & vs[1:]])
     rankp = torch.cumsum(firstp.to(torch.int64), 0) - 1
+    # torchlint: disable=atomic-scatter -- int64 counts repeat in any order
     counts = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
         0, torch.where(vs, rankp, torch.full((), n, device=dev)),
         torch.ones(n, dtype=torch.int64, device=dev))
     cpp = torch.where(vs, counts[rankp.clamp_max(n - 1)], 0)
     # Invalid points go to bin 257, outside the scanned range.
+    # torchlint: disable=atomic-scatter -- int64 counts repeat in any order
     hist = torch.zeros(258, dtype=torch.int64, device=dev).index_add_(
         0, torch.where(vs, cpp.clamp_max(256), 257),
         torch.ones(n, dtype=torch.int64, device=dev))
@@ -221,7 +223,8 @@ def _neighbor_table(ucid, m_cells: int):
     flat[mdest.reshape(-1)] = own[:, None].expand(m_cells, 13).reshape(-1)
     nbr27 = flat[:-1].reshape(m_cells, NB)
     present = nbr27 < m_cells
-    key = torch.where(present, torch.tensor(_NEAREST_FIRST, device=dev)[
+    key = torch.where(present, torch.tensor(_NEAREST_FIRST, dtype=torch.int64,
+                                             device=dev)[
         None, :], 4 * NB)
     order2 = torch.argsort(key, dim=1, stable=True)
     nbr_c = torch.gather(nbr27, 1, order2)

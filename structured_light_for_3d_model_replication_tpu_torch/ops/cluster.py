@@ -50,6 +50,7 @@ def dbscan(points: torch.Tensor, eps: float, min_points: int = 200,
         fwd = torch.minimum(labels, nb_lab.min(1).values)
         src_lab = torch.where(edge_ok, fwd[rows], big)
         rev = torch.full((n,), n, dtype=torch.int64, device=dev)
+        # torchlint: disable=atomic-scatter -- an int64 amin repeats
         rev.scatter_reduce_(0, flat_idx, src_lab.reshape(-1), reduce="amin")
         new = torch.where(core, torch.minimum(fwd, rev), big)
         changed = bool((new != labels).any())
@@ -83,6 +84,7 @@ def keep_largest_cluster(points: torch.Tensor, eps: float,
     if n_clusters == 0:
         return valid
     counts = torch.zeros(n, dtype=torch.int64, device=points.device)
+    # torchlint: disable=atomic-scatter -- int64 counts repeat in any order
     counts.index_add_(0, labels.clamp(0, n - 1).to(torch.int64),
                       (labels >= 0).to(torch.int64))
     return valid & (labels == torch.argmax(counts))

@@ -120,6 +120,7 @@ def _percentile_u8(x: torch.Tensor, q: float) -> torch.Tensor:
     offs = torch.arange(b, device=x.device, dtype=torch.int64)[:, None] * 256
     counts = torch.zeros(b * 256, dtype=torch.int64, device=x.device)
     idx = (flat.to(torch.int64) + offs).reshape(-1)
+    # torchlint: disable=atomic-scatter -- int64 counts repeat in any order
     counts.scatter_add_(0, idx, torch.ones_like(idx))
     cum = counts.reshape(b, 256).cumsum(1)
     pos = np.float32((n - 1) * (q / 100.0))

@@ -111,6 +111,7 @@ def fpfh_brick(points: torch.Tensor, normals: torch.Tensor, radius: float,
         # Histogram of the in-radius pairs (sums of ones: exact in any
         # order, like the JAX package's one-hot sum).
         hist = torch.zeros((c, FPFH_DIM), dtype=torch.float32, device=dev)
+        # torchlint: disable=atomic-scatter -- sums of ones are exact
         hist.scatter_add_(1, bins.reshape(c, -1), pair_ok[..., None].expand(
             c, 27 * S, 3).reshape(c, -1).to(torch.float32))
         cnt = pair_ok.sum(1)

@@ -353,5 +353,6 @@ def orient_normals(points: torch.Tensor, normals: torch.Tensor,
     to_loc = location[None, :] - points
     dots = (normals * to_loc).sum(-1, keepdim=True)
     flip = torch.logical_xor(dots < 0.0, torch.tensor(outward,
+                                                      dtype=torch.bool,
                                                       device=dots.device))
     return torch.where(flip, -normals, normals)

@@ -109,9 +109,11 @@ def optimize(graph: PoseGraph, iterations: int = 30,
         cd = torch.where(dst > 0, 6 * (dst - 1) + 3, nv)
         ix = (rows_e[:, None, None], 3 + cols[None, :, None],
               cs[:, None, None] + cols[None, None, :])
+        # torchlint: disable=atomic-scatter -- one entry an index: no sum
         J.index_put_(ix, E_R, accumulate=True)
         ix = (rows_e[:, None, None], 3 + cols[None, :, None],
               cd[:, None, None] + cols[None, None, :])
+        # torchlint: disable=atomic-scatter -- one entry an index: no sum
         J.index_put_(ix, -Tinv[:, :3, :3], accumulate=True)
         J = J[:e, :, :nv]
         JL = torch.einsum("eij,ejv->eiv", info, J)

@@ -46,7 +46,8 @@ def segment_plane(points: torch.Tensor, distance_threshold: float = 10.0,
     batch = min(256, num_iterations)
     n_batches = max(1, num_iterations // batch)
 
-    best = torch.tensor([0.0, 0.0, 1.0, 0.0], device=dev)
+    best = torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=torch.float32,
+                        device=dev)
     best_cnt = torch.full((), -1.0, device=dev)
     for _ in range(n_batches):
         i = torch.randint(0, n, (batch, 3), generator=generator, device=dev)

@@ -77,8 +77,8 @@ def sor_normals(points: torch.Tensor, valid: torch.Tensor | None = None,
     if nb_pad:
         bk = torch.cat([bk, bk.new_zeros((nb_pad, block))])
     ck = with_neighbors(bk)[:nb]
-    ii = torch.tensor(_II, device=dev)
-    jj = torch.tensor(_JJ, device=dev)
+    ii = torch.tensor(_II, dtype=torch.int64, device=dev)
+    jj = torch.tensor(_JJ, dtype=torch.int64, device=dev)
     nrms, cnts = [], []
     for g in groups:
         s = slice(g, g + chunk_blocks)

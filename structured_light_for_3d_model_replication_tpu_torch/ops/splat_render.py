@@ -126,8 +126,10 @@ def _project(means, normals, log_scales, colors_sh, opacity, valid,
     dev = means.device
     n = _unit(normals)
     helper = torch.where(torch.abs(n[:, 2:3]) < 0.9,
-                         torch.tensor([0.0, 0.0, 1.0], device=dev),
-                         torch.tensor([1.0, 0.0, 0.0], device=dev))
+                         torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32,
+                                      device=dev),
+                         torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32,
+                                      device=dev))
     t1 = _unit(torch.linalg.cross(n, helper, dim=-1))
     t2 = torch.linalg.cross(n, t1, dim=-1)
     basis = torch.stack([t1, t2, n], dim=-1)           # (S, 3, 3) columns
@@ -267,7 +269,8 @@ def _render_fn(means, normals, log_scales, colors_sh, opacity, valid,
 def camera_tensors(camera, device):
     """An ``(R_wc, eye, fx, fy, cx, cy)`` tuple as float32 tensors on
     ``device`` (the scalars 0-d)."""
-    return tuple(torch.as_tensor(np.asarray(c, np.float32), device=device)
+    return tuple(torch.as_tensor(np.asarray(c, np.float32),
+                                 dtype=torch.float32, device=device)
                  if not isinstance(c, torch.Tensor)
                  else c.to(device=device, dtype=torch.float32)
                  for c in camera)

@@ -39,7 +39,8 @@ class Calibration(NamedTuple):
 def _f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+    return torch.tensor(np.asarray(x, dtype=np.float32), dtype=torch.float32,
+                        device=device)
 
 
 def camera_rays(cam_K: torch.Tensor, height: int, width: int) -> torch.Tensor:

@@ -208,6 +208,7 @@ def integrate(state: TSDFState, params: TSDFParams, points, colors, valid,
         cvox = torch.floor(samp).to(torch.int32)
         cok = valid[:, None] & ((cvox >= 0) & (cvox < r_vox)).all(-1)
         cflat = _flat_voxel(cvox, cok, dir_map, nb, cap).reshape(-1)
+        # torchlint: disable=atomic-scatter -- sums of ones are exact
         hits = torch.zeros(cap * V + 1, dtype=f32, device=dev).index_add_(
             0, cflat, torch.ones(cflat.shape, dtype=f32, device=dev))[
             :cap * V].reshape(cap, V)

@@ -178,6 +178,7 @@ class Scanner:
         if self._frames is None:
             # What the projector displays: host uint8 frames, whatever
             # device the reconstruction runs on.
+            # torchlint: disable=host-read -- made on the host (device="cpu")
             self._frames = pattern_stack_for(self.proj, device="cpu").numpy()
         return self._frames
 

@@ -127,6 +127,7 @@ class _PinnedStager:
         with self.lock:
             if self.done is not None:
                 self.done.synchronize()
+            # torchlint: disable=host-read -- the pinned host buffer
             np.copyto(self.buf.numpy(), batch)
             with torch.cuda.device(self.device):
                 staged = self.buf.to(self.device, non_blocking=True)

@@ -147,8 +147,20 @@ def test_unported_tool_exits_2_naming_its_step(tool, step, capsys):
     its multi-card option (``--devices 2``) exits 2 naming step 4(c).
     ``scan`` and ``view`` came with step 5's capture-and-view half: their
     ``--help`` now exits 0 (tests/test_torch_hw_scanner.py and
-    tests/test_torch_viz.py run them). ``diagnose`` is ported
+    tests/test_torch_viz.py run them). ``lint`` came with step 5(b): its
+    ``--list-rules`` exits 0 and lists the port's ten rules
+    (tests/test_torch_lint.py runs it). ``diagnose`` is ported
     (tests/test_torch_diagnose.py)."""
+    if tool == "lint":
+        assert cli.main(["lint", "--list-rules"]) == 0
+        out, err = capsys.readouterr()
+        assert "not ported" not in err
+        assert {line.split(" ")[0] for line in out.splitlines()} == {
+            "kernel-import", "foreign-import", "host-read", "implicit-dtype",
+            "implicit-rng", "atomic-scatter", "silent-except", "lock-order",
+            "blocking-under-lock", "unlocked-shared-state"}
+        assert not cli._NOT_PORTED
+        return
     if tool in ("scan", "view"):
         with pytest.raises(SystemExit) as e:
             cli.main([tool, "--help"])

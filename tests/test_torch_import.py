@@ -76,7 +76,10 @@ def test_every_port_module_imports_without_jax():
                  "serve.router", "cli.diagnose", "hw.camera",
                  "hw.command_server", "hw.projector", "hw.rig",
                  "hw.turntable", "scanner", "viz", "gui", "cli.scan",
-                 "cli.view"):
+                 "cli.view", "analysis", "analysis.core",
+                 "analysis.callgraph", "analysis.locks", "analysis.project",
+                 "analysis.rules", "analysis.rules_concurrency",
+                 "analysis.__main__", "cli.lint"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -131,6 +134,30 @@ def test_capture_and_view_modules_load_no_optional_imports():
                or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")]
         assert not bad, bad
     """)
+
+
+def test_lint_loads_no_kernel_binding_and_no_jax():
+    """``cli lint`` runs in a fresh interpreter over a clean tree and loads
+    no kernel binding, no ``triton``, no ``torch.cuda`` extension module
+    and nothing of JAX: the analysis is stdlib-only, so it does not even
+    load ``torch``."""
+    out = _run(f"""
+        import os, sys, tempfile
+        from {PORT} import cli
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "mod.py"), "w") as f:
+                f.write("x = 1\\n")
+            rc = cli.main(["lint", tmp, "-q"])
+        bad = [m for m in sys.modules
+               if m.startswith("{PORT}.kernels") or m == "triton"
+               or m == "torch" or m.startswith("torch.cuda") or m.startswith("torch._C._cuda")
+               or m == "jax" or m.startswith("jax.")
+               or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")]
+        print(rc, bad)
+        assert rc == 0 and not bad, (rc, bad)
+        assert any(m == "{PORT}.analysis.rules" for m in sys.modules)
+    """)
+    assert out.splitlines()[-1].split()[0] == "0"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

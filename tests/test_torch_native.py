@@ -1,13 +1,16 @@
 """The port's own native bindings (``_native.py``, built from the repository's
-``native/src/graph_ops.cpp`` and ``ball_pivot.cpp``) against the JAX
-package's ``native.py`` on the CPU, and the two paths that use them:
-``"tangent"`` orientation as the JAX package runs it by default (native
-library on) and mesh mode ``"surface"``.
+``native/src``: ``ply_codec.cpp``, ``graph_ops.cpp``, ``ball_pivot.cpp`` and
+``grid_knn.cpp``) against the JAX package's ``native.py`` on the CPU, and the
+two paths that use them: ``"tangent"`` orientation as the JAX package runs it
+by default (native library on) and mesh mode ``"surface"``.
 
 Tolerances:
-* the three bindings on one shared KNN graph and one set of radii: bit-equal
-  (both libraries compile the same sources with the same flags on this
-  host);
+* the graph bindings on one shared KNN graph and one set of radii,
+  ``grid_knn`` and ``dbscan_labels`` on the same seeded inputs: bit-equal,
+  and ``ply_write`` / ``stl_write``: byte-identical files (both libraries
+  compile the same sources with the same flags on this host); the JAX
+  tests' own contracts besides — ``grid_knn`` within 1e-4 of a kd-tree with
+  the same indices, DBSCAN's two blobs;
 * ``"tangent"`` end to end: each package builds its own exact KNN graph,
   which may order tied neighbours differently, so the signs agree on
   ≥ 99.9% of points, and every component points outward;
@@ -33,6 +36,7 @@ from structured_light_for_3d_model_replication_tpu.models import (
 )
 from structured_light_for_3d_model_replication_tpu_torch import _native
 from structured_light_for_3d_model_replication_tpu_torch.io import ply
+from structured_light_for_3d_model_replication_tpu_torch.io.stl import read_stl
 from structured_light_for_3d_model_replication_tpu_torch.models import (
     meshing,
 )
@@ -90,8 +94,8 @@ def test_library_is_the_ports_own():
     path = _native.library_path()
     assert path.exists() and path.parent.name == "native"
     assert path.parent.parent.name == "build"
-    assert [s.name for s in _native._SOURCES] == ["graph_ops.cpp",
-                                                  "ball_pivot.cpp"]
+    assert [s.name for s in _native._SOURCES] == [
+        "ply_codec.cpp", "graph_ops.cpp", "ball_pivot.cpp", "grid_knn.cpp"]
 
 
 def test_mst_orient_normals_bit_equal_to_jax():
@@ -141,6 +145,137 @@ def test_bindings_validate_their_inputs():
         _native.mst_orient_normals(pts[:10], nrm, idx, ok)
     with pytest.raises(ValueError, match="must be"):
         _native.ball_pivot(pts, nrm[:10], [1.0])
+
+
+@pytest.mark.parametrize("case", ["self", "self kept", "queries",
+                                  "k above n"])
+def test_grid_knn_bit_equal_to_jax(case):
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(1500, 3)).astype(np.float32)
+    kw = {"self kept": {"exclude_self": False},
+          "queries": {"queries": rng.normal(size=(300, 3)).astype(
+              np.float32)}}.get(case, {})
+    if case == "k above n":
+        pts = pts[:9]
+    k = 12 if case == "k above n" else 8
+    d2, idx = _native.grid_knn(pts, k, **kw)
+    ref_d2, ref_idx = jnative.grid_knn(pts, k, **kw)
+    assert d2.dtype == np.float32 and idx.dtype == np.int32
+    np.testing.assert_array_equal(d2, ref_d2)
+    np.testing.assert_array_equal(idx, ref_idx)
+    if case == "k above n":
+        assert (idx[:, 8:] == -1).all() and (idx[:, :8] >= 0).all()
+
+
+@pytest.mark.parametrize("separate", [False, True])
+def test_grid_knn_matches_kdtree(separate):
+    """tests/test_native.py's contract: sqrt(d2) within 1e-4 of cKDTree and
+    the same indices, self excluded from a self query."""
+    rng = np.random.default_rng(13)
+    pts = rng.normal(size=(1200, 3)).astype(np.float32)
+    if separate:
+        q = rng.normal(size=(100, 3)).astype(np.float32)
+        d2, idx = _native.grid_knn(pts, 4, queries=q)
+        ref_d, ref_i = cKDTree(pts).query(q, k=4)
+    else:
+        d2, idx = _native.grid_knn(pts, 6)
+        ref_d, ref_i = cKDTree(pts).query(pts, k=7)
+        ref_d, ref_i = ref_d[:, 1:], ref_i[:, 1:]
+    np.testing.assert_allclose(np.sqrt(d2), ref_d, atol=1e-4)
+    np.testing.assert_array_equal(idx, ref_i)
+
+
+def test_dbscan_labels_bit_equal_to_jax():
+    """Two blobs and scattered noise through each package's DBSCAN
+    labelling on one KNN graph: equal labels, and tests/test_native.py's
+    contract — two clusters, one a blob."""
+    rng = np.random.default_rng(14)
+    pts = np.vstack([rng.normal(size=(300, 3)),
+                     rng.normal(size=(300, 3)) + 30,
+                     rng.uniform(-60, 90, (40, 3))]).astype(np.float32)
+    d2, idx = _native.grid_knn(pts, 8)
+    ok = (d2 < 9.0) & (idx >= 0)
+    core = ok.sum(1) >= 4
+    labels, count = _native.dbscan_labels(idx, ok, core)
+    ref, ref_count = jnative.dbscan_labels(idx, ok, core)
+    np.testing.assert_array_equal(labels, ref)
+    assert count == ref_count == 2
+    assert len(set(labels[:300]) - {-1}) == 1
+    assert len(set(labels[300:600]) - {-1}) == 1
+    assert set(labels[:300]) != set(labels[300:600])
+
+
+@pytest.mark.parametrize("binary", [True, False], ids=["binary", "ascii"])
+@pytest.mark.parametrize("fields", ["points", "colors", "normals", "all"])
+def test_ply_write_byte_equal_to_jax(binary, fields, tmp_path):
+    rng = np.random.default_rng(15)
+    pts = rng.normal(size=(500, 3)).astype(np.float32) * 100
+    col = rng.integers(0, 256, (500, 3)).astype(np.uint8)
+    nrm = rng.normal(size=(500, 3)).astype(np.float32)
+    kw = {"colors": col if fields in ("colors", "all") else None,
+          "normals": nrm if fields in ("normals", "all") else None}
+    got, ref = tmp_path / "port.ply", tmp_path / "jax.ply"
+    _native.ply_write(str(got), pts, binary=binary, **kw)
+    jnative.ply_write(str(ref), pts, binary=binary, **kw)
+    assert got.read_bytes() == ref.read_bytes()
+    cloud = ply.read_ply(str(got))
+    if binary:
+        np.testing.assert_array_equal(cloud.points, pts)
+        if kw["normals"] is not None:
+            np.testing.assert_array_equal(cloud.normals, nrm)
+    else:
+        np.testing.assert_allclose(cloud.points, pts, atol=1e-4)
+    if kw["colors"] is not None:
+        np.testing.assert_array_equal(cloud.colors, col)
+
+
+def test_stl_write_byte_equal_to_jax(tmp_path):
+    """A sphere's ball-pivot mesh through both writers: the same bytes,
+    read back by the port's reader to the same triangles."""
+    rng = np.random.default_rng(16)
+    u = rng.normal(size=(1500, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    verts, nrm = (u * 40.0).astype(np.float32), u.astype(np.float32)
+    faces = _native.ball_pivot(verts, nrm, _radii(verts))
+    got, ref = tmp_path / "port.stl", tmp_path / "jax.stl"
+    _native.stl_write(str(got), verts, faces)
+    jnative.stl_write(str(ref), verts, faces)
+    data = got.read_bytes()
+    assert data == ref.read_bytes()
+    assert len(data) == 84 + 50 * len(faces)
+    mesh = read_stl(str(got))
+    np.testing.assert_array_equal(mesh.vertices[mesh.faces], verts[faces])
+
+
+def test_new_bindings_raise_without_the_library(monkeypatch, tmp_path):
+    """No silent stand-in: without the library each binding raises."""
+    monkeypatch.setattr(_native, "_load", lambda: None)
+    pts = np.zeros((4, 3), np.float32)
+    idx = np.zeros((4, 2), np.int32)
+    calls = (lambda: _native.ply_write(str(tmp_path / "a.ply"), pts),
+             lambda: _native.stl_write(str(tmp_path / "a.stl"), pts,
+                                       np.zeros((1, 3), np.int32)),
+             lambda: _native.dbscan_labels(idx, idx > 0, np.ones(4, bool)),
+             lambda: _native.grid_knn(pts, 2))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="native layer unavailable"):
+            call()
+    assert not (tmp_path / "a.ply").exists()
+
+
+def test_new_bindings_validate_their_inputs(tmp_path):
+    pts = np.zeros((4, 3), np.float32)
+    with pytest.raises(ValueError, match="colors"):
+        _native.ply_write(str(tmp_path / "a.ply"), pts,
+                          colors=np.zeros((3, 3), np.uint8))
+    with pytest.raises(ValueError, match="out of range"):
+        _native.stl_write(str(tmp_path / "a.stl"), pts,
+                          np.array([[0, 1, 4]], np.int32))
+    with pytest.raises(ValueError, match="core"):
+        _native.dbscan_labels(np.zeros((4, 2), np.int32),
+                              np.ones((4, 2), bool), np.ones(3, bool))
+    with pytest.raises(ValueError, match="queries"):
+        _native.grid_knn(pts, 2, queries=np.zeros((2, 2), np.float32))
 
 
 def test_tangent_orientation_matches_jax_default():
