@@ -6,7 +6,9 @@ session and its splat appearance tier (rendered novel views), through
 the cleanup path of a single capture, the command-line tools on a session
 captured by the virtual rig, the capture loop and the viewer, the
 calibration, one serving replica and a fleet of three behind the router,
-with its CUDA kernels; then its lint and its native bindings.
+with its CUDA kernels; then its lint and its native bindings, and last the
+multi-card tier (the span members' steps, the sharded dense solve, the
+serving tier over every card the machine has).
 
     python3 chip_smoke.py                  # the full run (no arguments)
     python3 chip_smoke.py --kernels-only   # build + kernel checks, no result
@@ -16,6 +18,7 @@ with its CUDA kernels; then its lint and its native bindings.
     python3 chip_smoke.py --fleet-only     # build + the fleet phase only
     python3 chip_smoke.py --capture-only   # build + the capture loop (8f)
     python3 chip_smoke.py --lint-only      # build + files phase + lint (8g)
+    python3 chip_smoke.py --multi-card-only  # build + the ring + 8h
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -198,7 +201,7 @@ Phases, in order; any failure exits non-zero before the result line:
    render, the files phase, this phase), after the fleet, each step with
    its seconds and no kernel launch: (a) ``python -m <port>.cli lint`` in a
    subprocess on this checkout, which must exit 0, then on a scratch tree
-   of one bad fixture per rule (the ten that ``--list-rules`` lists),
+   of one bad fixture per rule (the eleven that ``--list-rules`` lists),
    which must exit 1 naming each; (b) the port's native library, built
    from ``native/src`` with ``g++ -march=native`` on this host at its
    first use in the run (the files phase's ``mesh --mode surface``):
@@ -211,13 +214,40 @@ Phases, in order; any failure exits non-zero before the result line:
    ``ply_write`` of the merged cloud read back by ``io/ply.read_ply`` and
    ``stl_write`` of the cleanup's depth-10 mesh read back by
    ``io/stl.read_stl``, both equal to what was written;
+8h. several cards and the sharded tier (``--multi-card-only``: build, the
+   ring rendered and merged once, this phase), each part with its seconds:
+   (a) a config 7-shaped batch — 2 of the ring's stops, 46 frames at
+   1080p, 190.8 MB — through ``parallel/pipeline.reconstruct_blocks``
+   with every span member's row block on this one card, the members
+   stepped in turn, at span widths 2, 4 and 8 (540, 270, 135 rows): each
+   result bit-equal to the unsharded ``reconstruct_batch``, one
+   ``decode_maps`` launch a member; (b) ``mesh_from_cloud`` of the ring's
+   merged cloud at depth 8 (the dense solve) with a ``device_mesh`` over
+   this card, its vertices and faces bit-equal to the call without one,
+   each solve's seconds; (c)
+   ``ReconstructionService`` with ``devices=1`` and with
+   ``shard_min_pixels`` beside the plain service on two 1080p stops:
+   lane-pinned on one card, every PLY byte-equal; (d)
+   ``parallel/distributed.initialize_from_env`` in a subprocess, a world
+   of one over ``nccl`` with an ``all_reduce`` on a card tensor; then on
+   every card the machine has, at the bench's shapes: config 7b's sweep
+   at 1, 2, 4, 8 lanes (as far as the cards go) on the windowed 1080p
+   stop with no program build after warm-up, and with two cards or more
+   config 7c's failover on its 160×96 rig (a lane's card killed mid-scan
+   by ``SL_DEVICE_FAULTS``, no stop lost, the moved session's PLY
+   byte-equal to a never-moved one's) and 7c2's 1080p span over the
+   cards, two stops a batch (190.8 MB split by rows over the members),
+   with the first card convicted by the probe, the span re-formed and
+   the card revived; a ``{"multi_card": …}`` line says
+   what ran and what one card could not run;
 9. each phase's wall seconds and the total on one line, a ``kernels`` JSON
    line (``matvec_band`` and ``classify_bricks`` also carry their numbers
    on 3d's band and each deep row's launches under ``deep_3d``; every
    kernel its launches by tool in the files phase under ``files``, in the
    calibration phase under ``calibration``, in the serve phase under
    ``serve``, over the fleet's replicas and the diagnose probe under
-   ``fleet``, and by part and view mode of phase 8f under ``capture``),
+   ``fleet``, by part and view mode of phase 8f under ``capture``, and
+   ``decode_maps`` its launches in phase 8h under ``multi_card``),
    the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5940,6 +5970,10 @@ LINT_FIXTURES = {
                 with self._lock:
                     return open(path).read()
         """),
+    "sharding-readiness": ("parallel/sharding.py", """
+        def stage(block):
+            return block.to("cuda")
+        """),
     "unlocked-shared-state": ("serve/shared_state.py", """
         import threading
 
@@ -6115,6 +6149,614 @@ def lint_native_path(dev, outputs) -> dict:
     return secs
 
 
+# ---------------------------------------------------------------------------
+# Phase 8h: several cards and the sharded tier
+# ---------------------------------------------------------------------------
+
+MC_WIDTHS = (2, 4, 8)          # span widths of the 1080p member steps
+MC_DEPTH = 8                   # the dense solve's depth (256³)
+MC_FACES_TOL = 0.02            # tests/test_serve_lanes.py:320
+MC_PROJ = (64, 32)             # the host lanes' tiny rig (projector)
+MC_LANE_CAM = (24, 40)         # its lane-pinned bucket
+MC_SPAN_CAM = (32, 48)         # its sharded bucket (rows split by 2, 4, 8)
+MC_7B_WINDOW = (slice(400, 656), slice(700, 1084))   # bench.py:1551-1555
+MC_7C_PROJ = (160, 96)         # configs 7c / 7c2's rig (bench.py:1701)
+MC_JOBS_PER_LANE = 6           # bench config 7b's jobs per device
+MC_SPAN_BATCH = 2              # 7c2's batch: two 1080p stops, 190.8 MB
+
+
+def mc_member_steps(dev, stacks, calib, proj) -> dict:
+    """8h (a): a config 7-shaped batch (B = 2 stops, 46 frames at 1080p)
+    through ``parallel/pipeline.reconstruct_blocks`` with every member's
+    row block on this one card, stepped in turn, at span widths 2, 4 and
+    8: each assembled result bit-equal to the unsharded
+    ``reconstruct_batch``, and one ``decode_maps`` launch a member.
+    Returns the launches by width."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        pipeline,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        decode,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        pipeline as par,
+    )
+
+    batch = torch.from_numpy(np.ascontiguousarray(stacks)).to(dev)
+    h = batch.shape[2]
+    print(f"multi-card (a): batch {tuple(batch.shape)} uint8, "
+          f"{batch.numel() / 1e6:.1f} MB", flush=True)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ref = pipeline.reconstruct_batch(batch, calib, proj.col_bits,
+                                     proj.row_bits, device=dev)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    launches = {}
+    for width in MC_WIDTHS:
+        blocks = [[batch[:, :, r0:r1].contiguous()
+                   for r0, r1 in pmesh.blocks(h, width)]]
+        _sync(dev)
+        decode.decode_maps.launches = 0
+        t0 = time.perf_counter()
+        got = par.reconstruct_blocks(blocks, [[calib] * width],
+                                     proj.col_bits, proj.row_bits)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        launches[f"members {width}"] = n = decode.decode_maps.launches
+        same = {f: (torch_equal_bits if getattr(ref, f).is_floating_point()
+                    else torch.equal)(getattr(got, f), getattr(ref, f))
+                for f in pipeline.CloudResult._fields}
+        print(f"multi-card (a): span width {width} ({h // width} rows a "
+              f"member): decode_maps launches {n}, {secs:.3f} s (the "
+              f"unsharded batch {plain_s:.3f} s), bit-equal {same}",
+              flush=True)
+        if not all(same.values()):
+            fail(f"8h (a): the {width}-member steps differ from the "
+                 f"unsharded batch: {same}")
+        if dev.type == "cuda" and n != width:
+            fail(f"8h (a): {n} decode_maps launches for {width} members")
+        del blocks, got
+    del batch, ref
+    return launches
+
+
+def mc_dense_solve(dev, merged) -> dict:
+    """8h (b): ``mesh_from_cloud`` of the ring's merged cloud at depth 8
+    (the dense solve) with a ``device_mesh`` over this card, as a sharded
+    bucket's postprocess calls it, against the same call without one: the
+    solve runs on a member of the mesh, so vertices and faces must be
+    bit-equal. Returns each solve's seconds and the faces."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    out, meshes = {"points": len(merged.points)}, {}
+    for name, over in (("plain", {}), ("device_mesh", dict(
+            device_mesh=pmesh.serve_space_mesh(1, devices=[dev])))):
+        timing = {}
+        meshes[name] = meshing.mesh_from_cloud(
+            merged, depth=MC_DEPTH, quantile_trim=0.0, device=dev,
+            timing=timing, **over)
+        out[name] = {"solve_s": timing["solve_s"],
+                     "extract_s": timing["extract_s"],
+                     "faces": len(meshes[name].faces)}
+    same = (np.array_equal(meshes["plain"].vertices,
+                           meshes["device_mesh"].vertices)
+            and np.array_equal(meshes["plain"].faces,
+                               meshes["device_mesh"].faces))
+    print(f"multi-card (b): {out['points']} points at depth {MC_DEPTH}: "
+          f"solve {out['device_mesh']['solve_s']:.3f} s with the "
+          f"device_mesh, {out['plain']['solve_s']:.3f} s without; faces "
+          f"{out['device_mesh']['faces']} / {out['plain']['faces']}, "
+          f"bit-equal {same}; extractions "
+          f"{out['plain']['extract_s'] + out['device_mesh']['extract_s']:.2f}"
+          " s", flush=True)
+    if not same or not out["plain"]["faces"]:
+        fail("8h (b): the device_mesh solve's mesh differs from the plain "
+             "solve's")
+    return out
+
+
+def mc_one_card_services(dev, stacks, calib, proj) -> dict:
+    """8h (c): ``ReconstructionService`` with ``devices=1`` and with
+    ``shard_min_pixels`` set, beside the plain service, each on two of the
+    ring's 1080p stops. With one card the sharded tier's span is empty
+    (JAX ``serve/lanes.py:587-588``), so every bucket routes lane-pinned
+    and every PLY equals the plain service's byte for byte. Returns each
+    service's ``decode_maps`` launches."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        decode,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ReconstructionService,
+        ServeConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.service import (
+        fixed_calib_provider,
+    )
+
+    h, w = stacks.shape[2:]
+    variants = {"plain": {}, "devices=1": dict(devices=1),
+                "shard_min_pixels": dict(shard_min_pixels=1,
+                                         shard_devices=0)}
+    plys, launches = {}, {}
+    for name, opts in variants.items():
+        cfg = ServeConfig(device=str(dev), proj=proj, buckets=((h, w),),
+                          batch_sizes=(1,), linger_ms=1.0, queue_depth=8,
+                          workers=1, content_cache=False,
+                          warmup_sessions=False, **opts)
+        svc = ReconstructionService(
+            cfg, calib_provider=fixed_calib_provider(calib)).start()
+        try:
+            key = svc.lanes.route(svc._bucket_key(h, w), 1,
+                                  svc.lanes.lane(0))
+            if svc.lanes.span_devices() or key.shards:
+                fail(f"8h (c): {name} on one card routes {key.label()} "
+                     f"over span {svc.lanes.span_devices()}")
+            _sync(dev)
+            decode.decode_maps.launches = 0
+            t0 = time.perf_counter()
+            jobs = [svc.submit_array(s) for s in stacks]
+            for j in jobs:
+                if not j.wait(300.0) or j.status != "done":
+                    fail(f"8h (c): {name}: {j.status_dict()}")
+            secs = time.perf_counter() - t0
+            launches[name] = decode.decode_maps.launches
+            plys[name] = [j.result_bytes for j in jobs]
+        finally:
+            svc.drain(timeout=60.0)
+        print(f"multi-card (c): {name}: program {key.label()}, "
+              f"{len(jobs)} jobs in {secs:.2f} s, decode_maps launches "
+              f"{launches[name]}", flush=True)
+    for name in variants:
+        if plys[name] != plys["plain"]:
+            fail(f"8h (c): {name}'s PLYs differ from the plain service's")
+    print("multi-card (c): every PLY byte-equal to the plain service's "
+          f"({[len(b) for b in plys['plain']]} bytes)", flush=True)
+    return launches
+
+
+_NCCL_WORLD_OF_ONE = r"""
+import torch
+import torch.distributed as dist
+
+from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+    distributed,
+)
+
+assert distributed.initialize_from_env() is True
+assert distributed.world() == (0, 1), distributed.world()
+assert dist.get_backend() == "nccl", dist.get_backend()
+x = torch.arange(4, dtype=torch.float32, device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+assert x.tolist() == [0.0, 1.0, 2.0, 3.0], x.tolist()
+print("nccl world of one: all_reduce", x.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def mc_world_of_one() -> float:
+    """8h (d): ``parallel/distributed.initialize_from_env`` in a subprocess
+    with a world of one over ``nccl`` (two ranks cannot share one card),
+    and an ``all_reduce`` on a card tensor. Returns its seconds."""
+    port = free_ports(1)[0]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env.update(SL_COORDINATOR=f"127.0.0.1:{port}", SL_NUM_PROCESSES="1",
+               SL_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _NCCL_WORLD_OF_ONE], env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300, check=False)
+    secs = time.perf_counter() - t0
+    print(f"multi-card (d): {proc.stdout.strip()} (rc {proc.returncode}, "
+          f"{secs:.1f} s)", flush=True)
+    if proc.returncode != 0 or "all_reduce" not in proc.stdout:
+        fail(f"8h (d): the nccl world of one failed:\n{proc.stdout}\n"
+             f"{proc.stderr}")
+    return secs
+
+
+def mc_rig() -> dict:
+    """The host lanes' tiny rig (the tests' shapes): config name →
+    (projector, stack)."""
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    proj = ProjectorConfig(width=MC_PROJ[0], height=MC_PROJ[1])
+    stacks = []
+    for h, w in (MC_LANE_CAM, MC_SPAN_CAM):
+        cam = synthetic.default_calibration(h, w, proj)
+        stacks.append(synthetic.render_scan(synthetic.Scene(), *cam, h, w,
+                                            proj)[0])
+    return {"7b": (proj, stacks[0]), "7c": (proj, stacks[0]),
+            "7c2": (proj, stacks[1])}
+
+
+def mc_bench_rig(stop=None) -> dict:
+    """The bench's shapes for configs 7b, 7c and 7c2: config name →
+    (projector, stack). 7b: a 1080p stop (``stop``, else stop 0 of the
+    ring, rendered here) kept only in its 256×384 window, the rest black,
+    as ``bench.py:1551-1555`` does; 7c: the 160×96 projector's own
+    patterns (``bench.py:1701-1705``); 7c2: the whole 1080p stop."""
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        patterns,
+    )
+
+    proj = ProjectorConfig()
+    if stop is None:
+        stop = render_stacks(1, STEP_DEG, proj)[0][0]
+    window = np.zeros_like(stop)
+    window[(slice(None),) + MC_7B_WINDOW] = stop[(slice(None),)
+                                                 + MC_7B_WINDOW]
+    chaos = ProjectorConfig(width=MC_7C_PROJ[0], height=MC_7C_PROJ[1])
+    return {"7b": (proj, window),
+            "7c": (chaos, patterns.pattern_stack_for(chaos, "cpu").numpy()),
+            "7c2": (proj, np.ascontiguousarray(stop))}
+
+
+def mc_service(devices, n: int, **cfg):
+    """A started ``ReconstructionService`` over the first ``n`` of
+    ``devices``: on cards as a user starts one (``ServeConfig.device``
+    None, every card, capped by ``devices=n``); host lanes through the
+    constructor's ``lane_devices``."""
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ReconstructionService,
+        ServeConfig,
+    )
+
+    cards = devices[0].type == "cuda"
+    return ReconstructionService(
+        ServeConfig(device=None if cards else "cpu", devices=n, **cfg),
+        lane_devices=None if cards else devices[:n]).start()
+
+
+@contextlib.contextmanager
+def device_faults(*rules):
+    """``SL_DEVICE_FAULTS`` armed with ``rules`` for the services built
+    inside (the serving tier reads it at construction)."""
+    from structured_light_for_3d_model_replication_tpu_torch.hw import (
+        faults,
+    )
+
+    old = os.environ.get(faults.DEVICE_FAULTS_ENV)
+    os.environ[faults.DEVICE_FAULTS_ENV] = faults.DeviceFaultPlan(
+        list(rules)).to_env()
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(faults.DEVICE_FAULTS_ENV, None)
+        else:
+            os.environ[faults.DEVICE_FAULTS_ENV] = old
+
+
+def mc_sweep_7b(devices, proj, stack) -> dict:
+    """Bench config 7b's offered-load sweep (``bench.py:1508-1661``): 1,
+    2, 4, 8 lanes (as far as ``devices`` go), one lane a device, 6 jobs a
+    lane from 2 clients a lane; every job done and zero program-cache
+    misses after warm-up at every level."""
+    import threading
+
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        JobRejected,
+    )
+
+    h, w = stack.shape[1:]
+    rows = {}
+    for n in (1, 2, 4, 8):
+        if n > len(devices):
+            break
+        svc = mc_service(devices, n, proj=proj, buckets=((h, w),),
+                         batch_sizes=(1, 2, 4), linger_ms=5.0,
+                         queue_depth=max(32, 8 * n), workers=n,
+                         content_cache=False, warmup_sessions=False)
+        warmed = len(svc._warmup_report)
+        errors: list = []
+        n_jobs, conc = MC_JOBS_PER_LANE * n, 2 * n
+
+        def client(k):
+            for j in range(n_jobs // conc):
+                while True:
+                    try:
+                        job = svc.submit_array(
+                            stack + np.uint8(1 + (k + j) % 7))
+                        break
+                    except JobRejected:
+                        time.sleep(0.05)
+                if not job.wait(300.0) or job.status != "done":
+                    errors.append(job.status_dict())
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(conc)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        misses = svc.cache.stats()["misses"]
+        lanes = dict(svc.registry.snapshot().get("serve_lane_jobs_total",
+                                                 {}))
+        svc.drain(timeout=60.0)
+        rows[n] = {"scans_per_s": n_jobs / wall, "lane_jobs": lanes,
+                   "steady_state_misses": misses - warmed}
+        print(f"multi-card 7b: {n} lane(s): {n_jobs} jobs of "
+              f"{stack.nbytes / 1e6:.1f} MB ({h}x{w}), "
+              f"{n_jobs / wall:.2f} scans/s, lanes {lanes}, steady-state "
+              f"misses {misses - warmed}", flush=True)
+        if errors:
+            fail(f"7b: {len(errors)} job(s) failed at {n} lanes: "
+                 f"{errors[0]}")
+        if misses != warmed:
+            fail(f"7b: {misses - warmed} program builds after warm-up at "
+                 f"{n} lanes")
+    return rows
+
+
+def mc_failover_7c(devices, proj, stack) -> dict:
+    """Bench config 7c's lane failover: the second lane's card refuses
+    every launch after its second, mid-scan; its sticky session's stops
+    all finish (on the survivor, the session's state moved with it), and
+    its PLY finalize equals a never-moved session's byte for byte."""
+    from structured_light_for_3d_model_replication_tpu_torch.hw import (
+        faults,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.lanes import (
+        device_label,
+    )
+
+    victim_label = device_label(devices[1])
+    h, w = stack.shape[1:]
+    with device_faults(faults.DeviceFaultRule(
+            device=victim_label, kind="device_lost", after_launches=2)):
+        svc = mc_service(devices, 2, proj=proj, buckets=((h, w),),
+                         batch_sizes=(1,), linger_ms=5.0, queue_depth=16,
+                         workers=2, mesh_depth=6, content_cache=False,
+                         warmup_sessions=False,
+                         device_probe_interval_s=120.0)
+    try:
+        s_ok = svc.create_session({"covis": False})["session_id"]
+        s_victim = svc.create_session({"covis": False})["session_id"]
+        victim = svc.sessions.get(s_victim)
+        if victim.lane.label != victim_label:
+            fail(f"7c: the victim session sits on {victim.lane.label}")
+        stacks = [stack + np.uint8(1 + i) for i in range(5)]
+        t0 = time.perf_counter()
+        for s in stacks:
+            job = svc.submit_session_stop(s_victim, s)
+            if not job.wait(120.0) or job.status != "done":
+                fail(f"7c: a victim stop was lost: {job.status_dict()}")
+        failover_s = time.perf_counter() - t0
+        moved_to = victim.lane.label
+        if svc.lanes.device_state(victim_label) != "dead" \
+                or moved_to == victim_label \
+                or device_label(victim.device) != moved_to:
+            fail(f"7c: {victim_label} {svc.lanes.device_state(victim_label)}"
+                 f", the session on {moved_to} (its state on "
+                 f"{victim.device})")
+        for s in stacks:
+            job = svc.submit_session_stop(s_ok, s)
+            if not job.wait(120.0) or job.status != "done":
+                fail(f"7c: a reference stop failed: {job.status_dict()}")
+        got = svc.finalize_session(s_victim, result_format="ply")
+        ref = svc.finalize_session(s_ok, result_format="ply")
+        if not (got.wait(300.0) and ref.wait(300.0)) \
+                or got.status != "done" or ref.status != "done":
+            fail(f"7c: finalize {got.status_dict()} {ref.status_dict()}")
+        same = got.result_bytes == ref.result_bytes
+    finally:
+        svc.abort()
+    print(f"multi-card 7c: {victim_label} died mid-scan; the session moved "
+          f"to {moved_to}; 5 stops ({h}x{w}) done in {failover_s:.2f} s, "
+          "none lost; "
+          f"finalize byte-equal to a never-moved session {same} "
+          f"({len(got.result_bytes)} bytes)", flush=True)
+    if not same or not got.result_bytes:
+        fail("7c: the re-pinned session's PLY differs from the reference's")
+    return {"victim": victim_label, "moved_to": moved_to,
+            "failover_s": failover_s}
+
+
+def mc_span_7c2(devices, proj, stack) -> dict:
+    """Bench config 7c2's sharded span at the widest power of two of the
+    cards, every job a batch of ``MC_SPAN_BATCH`` stops (padded) split by
+    rows over the span's members: the first card in enumeration order
+    refuses every launch under a sharded-only load; the probe convicts it
+    and only it, the span re-forms from the live set (no job lost, the
+    re-formed span warmed off the hot path: no build), then the card
+    answers again (its fault rule cleared), the probe revives it and the
+    full span serves with no build."""
+    from structured_light_for_3d_model_replication_tpu_torch.hw import (
+        faults,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        pipeline,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.lanes import (
+        device_label,
+    )
+
+    width = 1 << (len(devices).bit_length() - 1)
+    first = device_label(devices[0])
+    h, w = stack.shape[1:]
+    with device_faults(faults.DeviceFaultRule(device=first,
+                                              kind="device_lost")):
+        svc = mc_service(devices, width, proj=proj, buckets=((h, w),),
+                         batch_sizes=(MC_SPAN_BATCH,), linger_ms=5.0,
+                         queue_depth=16, workers=2,
+                         shard_min_pixels=h * w, shard_devices=width,
+                         mesh_depth=6, content_cache=False,
+                         warmup_sessions=False, device_probe_interval_s=0.2,
+                         device_probe_backoff_max_s=0.5)
+
+    def sharded_job(k):
+        job = svc.submit_array(stack + np.uint8(k))
+        if not job.wait(300.0) or job.status != "done":
+            fail(f"7c2: a sharded job was lost: {job.status_dict()}")
+        return job.result_bytes
+
+    try:
+        full = svc.lanes.span_devices()
+        if len(full) != width:
+            fail(f"7c2: span {full} for {width} cards")
+        t0 = time.perf_counter()
+        for k in range(1, 5):
+            sharded_job(k)
+        convict_s = time.perf_counter() - t0
+        states = {d: svc.lanes.device_state(d) for d in full}
+        reformed = svc.lanes.span_devices()
+        snap = svc.registry.snapshot()
+        probes = sum(snap.get("serve_sharded_span_probes_total",
+                              {}).values())
+        if [d for d, st in states.items() if st != "healthy"] != [first] \
+                or states[first] != "dead" or first in reformed \
+                or len(reformed) != (width // 2 if width > 2 else 0):
+            fail(f"7c2: states {states}, re-formed span {reformed}")
+        before = svc.cache.stats()["misses"]
+        sharded_job(5)
+        builds = svc.cache.stats()["misses"] - before
+        # The card answers again: the probe revives it.
+        svc.fault_injector.plan.rules.clear()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and \
+                svc.lanes.device_state(first) != "healthy":
+            time.sleep(0.05)
+        if svc.lanes.device_state(first) != "healthy" \
+                or svc.lanes.span_devices() != full:
+            fail(f"7c2: {first} {svc.lanes.device_state(first)}, span "
+                 f"{svc.lanes.span_devices()} after revival")
+        before = svc.cache.stats()["misses"]
+        got = sharded_job(9)
+        builds += svc.cache.stats()["misses"] - before
+        # The full span's PLY against the one-device pipeline on the last
+        # card, bit for bit.
+        want = ply_bytes(pipeline.to_point_cloud(pipeline.reconstruct(
+            stack + np.uint8(9), svc.calib_provider(h, w), proj.col_bits,
+            proj.row_bits, device=devices[width - 1])))
+        sharded = svc.registry.counter("serve_sharded_batches_total").value
+        faces, ref_faces = mc_sharded_stl(svc, stack + np.uint8(11),
+                                          devices[0])
+    finally:
+        svc.abort()
+    print(f"multi-card 7c2: span {'+'.join(full)}, batches of "
+          f"{MC_SPAN_BATCH} x {stack.nbytes / 1e6:.1f} MB ({h}x{w}), "
+          f"{h // width} rows a member; {first} convicted by "
+          f"the probe ({probes} round(s)) in {convict_s:.2f} s, span "
+          f"re-formed to {'+'.join(reformed) or 'off'}, {first} revived; 6 "
+          f"jobs done, none lost ({sharded} sharded batches), {builds} "
+          "build(s) on the re-formed and the revived spans; an STL job's "
+          f"Poisson solve over the span: {faces} faces against {ref_faces} "
+          "from one device", flush=True)
+    if builds:
+        fail(f"7c2: {builds} program build(s) after a span change")
+    print(f"multi-card 7c2: the {width}-card span's PLY byte-equal to one "
+          f"card's {got == want} ({len(got)} bytes)", flush=True)
+    if got != want:
+        fail("7c2: the sharded PLY differs from one card's")
+    return {"span": list(full), "convicted": first, "probes": probes,
+            "reformed": list(reformed), "faces": faces}
+
+
+def mc_sharded_stl(svc, stack, device) -> tuple[int, int]:
+    """A sharded bucket's STL job: its dense Poisson solve runs on a card
+    of the span (``mesh_from_cloud(device_mesh=…)``). Its faces must be
+    within 2% of the same cloud meshed on one device (the cloud from the
+    same stack's PLY job)."""
+    import io
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        read_ply,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+
+    jobs = [svc.submit_array(stack, result_format=f) for f in ("stl", "ply")]
+    for j in jobs:
+        if not j.wait(300.0) or j.status != "done":
+            fail(f"7c2: a sharded {j.status_dict()}")
+    faces = jobs[0].result_meta["faces"]
+    ref = meshing.mesh_from_cloud(
+        read_ply(io.BytesIO(jobs[1].result_bytes)), mode="watertight",
+        depth=svc.config.mesh_depth, quantile_trim=0.0, device=device)
+    n_ref = len(ref.faces)
+    if not faces or abs(faces - n_ref) > MC_FACES_TOL * n_ref:
+        fail(f"7c2: the sharded STL has {faces} faces, one device {n_ref}")
+    return faces, n_ref
+
+
+def multi_card_runs(devices, rig=None) -> dict:
+    """What only several devices can run: bench configs 7b (above one
+    lane), 7c and 7c2 over ``devices`` (the cards; host lanes
+    ``torch.device("cpu", k)`` in the CPU tests), each on its ``rig``
+    entry (:func:`mc_bench_rig` on the cards; None: the host lanes' tiny
+    :func:`mc_rig`). Returns what ran and what did not."""
+    rig = mc_rig() if rig is None else rig
+    ran = {"7b": mc_sweep_7b(devices, *rig["7b"])}
+    not_run = []
+    if len(devices) >= 2:
+        ran["7c"] = mc_failover_7c(devices, *rig["7c"])
+        ran["7c2"] = mc_span_7c2(devices, *rig["7c2"])
+    else:
+        not_run = ["7b above 1 lane", "7c", "7c2"]
+    return {"cards": len(devices), "ran": sorted(ran), "not_run": not_run,
+            "runs": ran}
+
+
+def multi_card_path(dev, stacks, calib, proj, merged) -> dict:
+    """Phase 8h: several cards and the sharded tier. On any machine, on
+    ``dev``: (a) the 1080p member steps at span widths 2, 4, 8; (b) the
+    depth-8 dense solve with a ``device_mesh``; (c) the one-card
+    services; (d) the nccl world of one. Then the runs that need several
+    cards, at the bench's shapes, on every card the machine has (with
+    one, only 7b's single lane), and a ``multi_card`` line saying what
+    ran. Returns ``decode_maps``'s launches by part and each part's
+    seconds."""
+    import torch
+
+    secs = {}
+    t0 = time.perf_counter()
+    launches = mc_member_steps(dev, stacks, calib, proj)
+    secs["member steps (a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solve = mc_dense_solve(dev, merged)
+    secs["dense solve (b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = mc_one_card_services(dev, stacks, calib, proj)
+    launches.update({f"serve {k}": n for k, n in served.items()})
+    secs["one-card services (c)"] = time.perf_counter() - t0
+    secs["nccl world of one (d)"] = mc_world_of_one()
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    runs = multi_card_runs(cards, mc_bench_rig(stacks[0]))
+    secs["multi-card runs"] = time.perf_counter() - t0
+    print(json.dumps({"multi_card": {
+        "cards": runs["cards"], "ran": runs["ran"],
+        "not_run": runs["not_run"]}}), flush=True)
+    print("multi-card: seconds " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return {"launches": launches, "solve": solve, "seconds": secs}
+
+
 class PhaseClock:
     """Wall seconds of the run's phases: ``with clock("name"):`` prints
     the phase's seconds when it ends; ``report()`` prints all of them and
@@ -6169,6 +6811,9 @@ def main() -> int:
     ap.add_argument("--lint-only", action="store_true",
                     help="build, render the ring, the files phase, then the "
                          "lint and native phase (8g; no result line)")
+    ap.add_argument("--multi-card-only", action="store_true",
+                    help="build, render the ring and merge it once, then "
+                         "the multi-card phase only (8h; no result line)")
     ap.add_argument("--fleet-only", action="store_true",
                     help="build, then the fleet phase only (bench config "
                          "10: three replica processes behind the router; "
@@ -6236,6 +6881,22 @@ def main() -> int:
             fleet_path(dev)
         clock.report()
         return 0
+    if args.multi_card_only:
+        from structured_light_for_3d_model_replication_tpu_torch.models import (
+            scan360,
+        )
+
+        with clock("render the ring"):
+            ring = files_ring(dev)
+            merged, _ = scan360.scan_stacks_to_cloud(
+                ring["stacks"], ring["calib"], ring["proj"].col_bits,
+                ring["proj"].row_bits, params=scan_params(STEP_DEG),
+                device=dev)
+        with clock("multi-card (8h)"):
+            multi_card_path(dev, np.ascontiguousarray(ring["stacks"][:2]),
+                            ring["calib"], ring["proj"], merged)
+        clock.report()
+        return 0
     if args.lint_only:
         with clock("render the ring"):
             ring = files_ring(dev)
@@ -6267,6 +6928,7 @@ def main() -> int:
         del sweeps
         stream_path_2b(dev, ring, fused)
         gated_path(dev, ring)
+        merged = ring["loop"][0]       # the multi-card phase's cloud (8h)
         del fused, ring["loop"]
     with clock("streaming (5)"):
         launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
@@ -6300,11 +6962,17 @@ def main() -> int:
         calib_launches = calibration_path(dev)
     with clock("serve (8d)"):
         served = serve_path(dev, ring)
-    del ring
+    mc_inputs = (np.ascontiguousarray(ring["stacks"][:2]), ring["calib"],
+                 ring["proj"], merged)
+    del ring, merged
     with clock("fleet (8e)"):
         fleet = fleet_path(dev)
     with clock("lint and native (8g)"):
         lint_native_path(dev, captured.pop("outputs"))
+    with clock("multi-card (8h)"):
+        kernels[0]["multi_card"] = multi_card_path(dev, *mc_inputs)[
+            "launches"]
+    del mc_inputs
     for k in kernels:
         name = k["name"].replace("_batched", "")
         k["launches"] = launches[k["name"]]
@@ -6324,7 +6992,7 @@ def main() -> int:
     clock.report()
     print(json.dumps({"kernels": [
         {key: k[key] for key in order + tuple(
-            d for d in ("deep_3c", "deep_3d") if d in k)}
+            d for d in ("deep_3c", "deep_3d", "multi_card") if d in k)}
         for k in kernels]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

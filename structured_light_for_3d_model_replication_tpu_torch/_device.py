@@ -1,5 +1,4 @@
-"""Device resolution, stage clocks and the not-ported error shared by the
-public entry points."""
+"""Device resolution and stage clocks shared by the public entry points."""
 
 from __future__ import annotations
 
@@ -18,13 +17,6 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the host")
     return dev
-
-
-def not_ported(what: str, where: str) -> NotImplementedError:
-    """The error an entry point raises for an option the port does not run
-    yet, naming the ROADMAP step that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {where} (ROADMAP Queue 1)")
 
 
 def div(x: torch.Tensor, s: float) -> torch.Tensor:

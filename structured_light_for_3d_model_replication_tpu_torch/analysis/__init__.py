@@ -18,11 +18,12 @@ of the JAX package's jaxlint, with its own rules. Two passes:
   :mod:`.locks`): cross-module rules — lock-order inversions, blocking
   calls under locks, unlocked shared state across thread entry points.
 
-jaxlint's tracing rules (``static-argnames``, ``mutable-global``,
-``jit-static-from-loop``, ``jit-traced-shape-scalar``) have no
-counterpart: the port traces nothing (no ``torch.jit``, ``torch.compile``
-or CUDA graph). Nor does its ``sharding-readiness``: the port has no
-sharded path yet.
+jaxlint's ``sharding-readiness`` (warn tier, :mod:`.rules_sharding`)
+takes its PyTorch meaning: on the modules the multi-card tier spans it
+flags work pinned to the current or first card. jaxlint's tracing rules
+(``static-argnames``, ``mutable-global``, ``jit-static-from-loop``,
+``jit-traced-shape-scalar``) have no counterpart: the port traces nothing
+(no ``torch.jit``, ``torch.compile`` or CUDA graph).
 
 Everything is AST-only and stdlib-only, so the gate runs where torch
 itself is absent. The runtime complements live in `utils/sanitize.py`.
@@ -46,6 +47,7 @@ from .core import (  # noqa: F401
     to_sarif,
 )
 from . import rules  # noqa: F401  (importing registers the built-in rules)
+from . import rules_sharding  # noqa: F401  (registers sharding-readiness)
 from .project import (  # noqa: F401
     PROJECT_REGISTRY,
     ProjectIndex,

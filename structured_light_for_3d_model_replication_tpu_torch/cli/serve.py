@@ -1,20 +1,21 @@
 """``serve``: the continuous-batching reconstruction service, one replica
-on one device, or the fleet's front router (counterpart of the JAX
-package's ``cli/serve.py``).
+over one or more cards, or the fleet's front router (counterpart of the
+JAX package's ``cli/serve.py``).
 
 Runs the `serve/` subsystem headless: bounded admission queue, bucketed
 continuous batcher, warmed program cache, device worker, and the HTTP
 front end (submit/status/result + /healthz + /metrics). SIGTERM/SIGINT
 drain gracefully: in-flight jobs finish, new submissions get a retryable
 503, workers exit, then the listener closes. ``--device`` (default
-``cuda``) picks the card; ``cpu`` serves with the plain PyTorch path.
+``cuda``) picks the cards — every card this process sees, capped by
+``--devices``; ``cpu`` serves with the plain PyTorch path on the host.
+``--workers`` lanes spread over the cards, and ``--shard-min-pixels``
+sends big buckets to one program over ``--shard-devices`` cards.
 
 The fleet tier runs: ``--peers`` and ``--handoff-dir`` on a replica, and
 ``--router`` (with ``--replicas``, ``--check-interval``, ``--router-id``,
 ``--router-peers`` and ``--pin-store``) in front of replicas; the router
-never touches a device. ``--shard-min-pixels`` and ``--devices`` above 1
-are parsed as the JAX tool parses them and exit with code 2: they come
-with ROADMAP Queue 1 step 4(c).
+never touches a device.
 """
 
 from __future__ import annotations
@@ -25,10 +26,6 @@ import sys
 import threading
 
 from ._args import add_device
-
-#: ROADMAP Queue 1 step that brings the multi-card options.
-_MULTI_CARD_STEP = "step 4(c) (several cards and the sharded tier)"
-
 
 def _parse_buckets(spec: str) -> tuple:
     out = []
@@ -208,17 +205,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _multi_card_option(args) -> str | None:
-    """The first multi-card option ``args`` asks for, or None."""
-    for flag, on in (("--shard-min-pixels",
-                      args.shard_min_pixels is not None),
-                     ("--devices", args.devices is not None
-                      and args.devices > 1)):
-        if on:
-            return flag
-    return None
-
-
 def _run_router(args) -> int:
     """``serve --router``: the thin fleet front (serve/router.py). It
     holds no reconstruction state and never touches a device; signals
@@ -290,12 +276,6 @@ def main(argv=None) -> int:
 
     if args.router:
         return _run_router(args)
-    flag = _multi_card_option(args)
-    if flag is not None:
-        print(f"serve {flag} is not ported yet: it comes with ROADMAP "
-              f"Queue 1 {_MULTI_CARD_STEP}", file=sys.stderr)
-        return 2
-
     from ..config import ProjectorConfig
     from ..serve.service import (
         ReconstructionService,

@@ -28,8 +28,9 @@ multipliers (`server/processing.py:222-235`) in the native layer the port
 shares with the JAX package (:mod:`.._native`, ``native/src/ball_pivot.cpp``:
 sequential front propagation, a host job); without that library it falls
 back, as the JAX package does, to the Poisson solve with a hard density
-trim. Not ported yet, raising an error that names the ROADMAP step that
-brings it: ``device_mesh`` (step 4(c)).
+trim. ``device_mesh`` (a :class:`..parallel.mesh.Mesh`) keeps a dense
+solve on the mesh's cards: the serving tier's sharded bucket meshes on a
+card its decode spanned.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from .. import _native
-from .._device import not_ported, resolve_device, stage_clock
+from .._device import resolve_device, stage_clock
 from ..io.ply import PointCloud
 from ..io.stl import TriangleMesh, write_stl
 from ..ops import marching, orientation, poisson, poisson_sparse
@@ -140,6 +141,13 @@ def mesh_from_cloud(
     (clamped to 5–9), trims the lowest-weight ``quantile_trim`` of the
     triangles, bounds the brick pool by ``tsdf_max_bricks`` (overflow
     degrades to holes, logged) and ignores ``cg_x0``.
+    ``device_mesh`` (a :class:`..parallel.mesh.Mesh`) places the dense
+    solve on one of the mesh's space members: ``device`` when it is one
+    (a serving lane's own card), else the first. The whole cloud is
+    solved there by :func:`..ops.poisson.reconstruct`; splitting its splat
+    over the members saved nothing, since the CG on the grid is the cost.
+    Depth > 8, the ball pivot and the TSDF representation ignore it, as
+    the JAX package does.
     ``timing``, when given, receives wall seconds per stage, each measured
     with a device synchronize: ``normals_s``, then ``setup_s``,
     ``coarse_s``, ``fine_cg_s``, ``iso_s`` (sparse) or ``solve_s``
@@ -155,9 +163,6 @@ def mesh_from_cloud(
     if representation not in ("poisson", "tsdf"):
         raise ValueError(f"unknown representation {representation!r} "
                          "(expected 'poisson', 'tsdf' or 'archival')")
-    if device_mesh is not None:
-        raise not_ported("the device_mesh sharded solve",
-                         "step 4(c) (several cards)")
     dev = resolve_device(device)
     pts = np.asarray(cloud.points, np.float32)
     if pts.shape[0] < 16:
@@ -209,6 +214,10 @@ def mesh_from_cloud(
         mesh = marching.extract_sparse(grid, quantile_trim=trim,
                                        engine=extraction)
     else:
+        if device_mesh is not None:
+            on = solve_device(device_mesh, dev)
+            pts_t, nrm_t = pts_t.to(on), nrm_t.to(on)
+            cg_x0 = None if cg_x0 is None else cg_x0.to(on)
         grid = poisson.reconstruct(pts_t, nrm_t, depth=int(depth),
                                    cg_iters=cg_iters, x0=cg_x0)
         t2 = clock()
@@ -221,6 +230,18 @@ def mesh_from_cloud(
     log.info("meshed %d points -> %d verts / %d faces (mode=%s depth=%d)",
              pts.shape[0], len(mesh.vertices), len(mesh.faces), mode, depth)
     return mesh
+
+
+def solve_device(device_mesh, device: torch.device) -> torch.device:
+    """The member of ``device_mesh``'s space axis a dense solve runs on:
+    ``device`` when the mesh holds it (compared by label: host lanes all
+    report ``cpu``), else the first member."""
+    from ..parallel.mesh import device_label
+
+    members = device_mesh.space_members
+    label = device_label(device)
+    return next((m for m in members if device_label(m) == label),
+                members[0])
 
 
 def mesh_from_cloud_async(cloud: PointCloud, *, task_name: str = "mesh",

@@ -68,11 +68,11 @@ class Scan360Params:
     :class:`..health.QualityGates`) selects the quality-gated tail of the
     multi-launch path.
 
-    ``decode_strategy`` and ``reduce_chunk`` keep the JAX package's fields
-    for its callers, and only their defaults: the port has one decode
-    schedule (chunks back to back, no host sync between them) and no
-    chunked reduce, so any other value raises ``ValueError`` rather than
-    being ignored."""
+    ``decode_strategy`` is ``"loop"`` or ``"scan"``, as in the JAX package,
+    where ``"scan"`` fuses the chunks into one launch; the port's one
+    schedule (chunks back to back, no host sync between them) serves both,
+    and any other name raises ``ValueError``. ``reduce_chunk`` is kept for
+    config compatibility and ignored, as the JAX package ignores it."""
 
     merge: merge_mod.MergeParams = merge_mod.MergeParams()
     method: str = "sequential"
@@ -86,16 +86,12 @@ class Scan360Params:
     gates: health_mod.QualityGates | None = None
 
 
-def _check_jax_only_knobs(params: Scan360Params) -> None:
-    """Refuse a non-default value of the JAX package's fields that select
-    nothing in the port (see :class:`Scan360Params`)."""
-    default = Scan360Params()
-    for knob in ("decode_strategy", "reduce_chunk"):
-        if getattr(params, knob) != getattr(default, knob):
-            raise ValueError(
-                f"{knob}={getattr(params, knob)!r}: the port has one decode "
-                f"schedule and no chunked reduce, so only the default "
-                f"{getattr(default, knob)!r} is accepted")
+def _check_decode_strategy(params: Scan360Params) -> None:
+    """Refuse a decode strategy the JAX package does not know, with its
+    message (see :class:`Scan360Params`)."""
+    if params.decode_strategy not in ("loop", "scan"):
+        raise ValueError(f"decode_strategy must be 'loop' or 'scan', "
+                         f"got {params.decode_strategy!r}")
 
 
 class _Stager:
@@ -245,7 +241,7 @@ def scan_stacks_to_cloud(stacks, calib: Calibration, col_bits: int,
     if params.method not in ("sequential", "posegraph"):
         raise ValueError(f"method must be 'sequential' or 'posegraph', "
                          f"got {params.method!r}")
-    _check_jax_only_knobs(params)
+    _check_decode_strategy(params)
     dev = resolve_device(device)
     if calib.Nc.device != dev:
         calib = calib.to(dev)
@@ -471,7 +467,6 @@ def scan_stream_to_cloud(stop_stacks, calib: Calibration, col_bits: int,
     the tail's (``tail_s``, with its ``subsample_s``, ``register_s`` and
     ``merge_s``), ``stops`` and ``chunk``. Quality gates are not applied
     on this path (a warning says so)."""
-    _check_jax_only_knobs(params)
     dev = resolve_device(device)
     if calib.Nc.device != dev:
         calib = calib.to(dev)

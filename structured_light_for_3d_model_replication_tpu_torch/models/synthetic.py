@@ -77,6 +77,16 @@ def rotated_scene(scene: Scene, angle_deg: float) -> Scene:
     return dataclasses.replace(scene, spheres=spheres)
 
 
+# numpy's OpenBLAS (seen with 0.3.27) returns wrong products when several
+# threads call it at once: calibration poses rendered in a thread pool came
+# out with pixels off by up to 81 grey levels, and a calibration solved on
+# such poses to 11 px rms. Every matrix product of a render (a scan stop's
+# :class:`FrameShader` and a calibration pose) takes this lock, so a render
+# in a thread equals the sequential one bit for bit (and the JAX package's,
+# which renders one pose at a time).
+_PRODUCTS_LOCK = threading.Lock()
+
+
 def raycast(scene: Scene, rays: np.ndarray):
     """Intersect unit rays from the origin with the scene: (t, albedo,
     hit_object, hit_any), nearest positive hit wins; the wall is a hit but
@@ -121,10 +131,12 @@ class FrameShader:
                  proj: ProjectorConfig = ProjectorConfig()):
         self.cam_height, self.cam_width = cam_height, cam_width
         self.proj = proj
-        rays = camera_rays_np(cam_K, cam_height, cam_width).reshape(-1, 3)
-        t, albedo, is_object, hit = raycast(scene, rays)
-        points = t[:, None] * rays
-        P_p = points @ R.T + T[None, :]
+        with _PRODUCTS_LOCK:
+            rays = camera_rays_np(cam_K, cam_height,
+                                  cam_width).reshape(-1, 3)
+            t, albedo, is_object, hit = raycast(scene, rays)
+            points = t[:, None] * rays
+            P_p = points @ R.T + T[None, :]
         z = P_p[:, 2]
         ok_z = z > 1e-6
         u = np.where(ok_z, (proj_K[0, 0] * P_p[:, 0] + proj_K[0, 2] * z)
@@ -196,15 +208,6 @@ def render_turntable_scans(scene: Scene, n_stops: int,
     return [render_scan(rotated_scene(scene, k * degrees_per_stop), cam_K,
                         proj_K, R, T, cam_height, cam_width, proj, frames)
             for k in range(n_stops)]
-
-
-# numpy's OpenBLAS (seen with 0.3.27) returns wrong products when several
-# threads call it at once: calibration poses rendered in a thread pool came
-# out with pixels off by up to 81 grey levels, and a calibration solved on
-# such poses to 11 px rms. The pose's matrix products take this lock, so a
-# render in a thread equals the sequential one bit for bit (and the JAX
-# package's, which renders one pose at a time).
-_PRODUCTS_LOCK = threading.Lock()
 
 
 def render_calibration_pose(

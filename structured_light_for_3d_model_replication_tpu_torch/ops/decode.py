@@ -107,22 +107,31 @@ def decode_maps(stacks: torch.Tensor, col_bits: int, row_bits: int,
 decode_maps.launches = 0
 
 
-def _percentile_u8(x: torch.Tensor, q: float) -> torch.Tensor:
-    """Exact linear-interpolation percentile of uint8 images via a 256-bin
-    histogram: (..., H, W) -> (...) float32, one value per image.
-
-    The interpolation position is formed as the JAX package forms it: the
-    Python position ``(n - 1) * q / 100`` enters as a float32, and ``lo``,
-    ``hi`` and the fraction come from that float32 value."""
-    lead = x.shape[:-2]
+def u8_counts(x: torch.Tensor) -> torch.Tensor:
+    """256-bin histogram counts of uint8 images: (..., H, W) -> (P, 256)
+    int64, one row per image (P = the product of the leading axes).
+    Counts of row blocks of an image add up to the image's counts in any
+    order, which is what lets a row-sharded decode reduce them exactly
+    (:mod:`..parallel.pipeline`)."""
     flat = x.reshape(-1, x.shape[-2] * x.shape[-1])
-    b, n = flat.shape
+    b = flat.shape[0]
     offs = torch.arange(b, device=x.device, dtype=torch.int64)[:, None] * 256
     counts = torch.zeros(b * 256, dtype=torch.int64, device=x.device)
     idx = (flat.to(torch.int64) + offs).reshape(-1)
     # torchlint: disable=atomic-scatter -- int64 counts repeat in any order
     counts.scatter_add_(0, idx, torch.ones_like(idx))
-    cum = counts.reshape(b, 256).cumsum(1)
+    return counts.reshape(b, 256)
+
+
+def percentile_from_counts(counts: torch.Tensor, n: int,
+                           q: float) -> torch.Tensor:
+    """Exact linear-interpolation percentile from (P, 256) counts of images
+    of ``n`` pixels each: (P,) float32.
+
+    The interpolation position is formed as the JAX package forms it: the
+    Python position ``(n - 1) * q / 100`` enters as a float32, and ``lo``,
+    ``hi`` and the fraction come from that float32 value."""
+    cum = counts.cumsum(1)
     pos = np.float32((n - 1) * (q / 100.0))
     lo = int(np.floor(pos))
     hi = int(np.ceil(pos))
@@ -130,7 +139,14 @@ def _percentile_u8(x: torch.Tensor, q: float) -> torch.Tensor:
     # argmax returns the first maximal index: first v with count(x <= v) > lo.
     v_lo = torch.argmax((cum > lo).to(torch.int32), dim=1).to(torch.float32)
     v_hi = torch.argmax((cum > hi).to(torch.int32), dim=1).to(torch.float32)
-    return (v_lo + (v_hi - v_lo) * frac).reshape(lead)
+    return v_lo + (v_hi - v_lo) * frac
+
+
+def _percentile_u8(x: torch.Tensor, q: float) -> torch.Tensor:
+    """Exact linear-interpolation percentile of uint8 images via a 256-bin
+    histogram: (..., H, W) -> (...) float32, one value per image."""
+    n = x.shape[-2] * x.shape[-1]
+    return percentile_from_counts(u8_counts(x), n, q).reshape(x.shape[:-2])
 
 
 def _per_image(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -151,9 +167,16 @@ def adaptive_mask(white: torch.Tensor, black: torch.Tensor,
     else:
         p = torch.quantile(b.reshape(b.shape[:-2] + (-1,)),
                            black_percentile / 100.0, dim=-1)
-    thresh_w = white_factor * p
     contrast = w - b
-    thresh_c = contrast_frac * contrast.amax(dim=(-2, -1))
+    return masked_by_thresholds(w, contrast, white_factor * p,
+                                contrast_frac * contrast.amax(dim=(-2, -1)))
+
+
+def masked_by_thresholds(w: torch.Tensor, contrast: torch.Tensor,
+                         thresh_w: torch.Tensor,
+                         thresh_c: torch.Tensor) -> torch.Tensor:
+    """The adaptive mask's last step: float32 white ``w`` and ``contrast``
+    (..., H, W) against one white and one contrast threshold per image."""
     return (w > _per_image(thresh_w, 2)) & (contrast > _per_image(thresh_c, 2))
 
 

@@ -1,5 +1,5 @@
-"""Continuous-batching reconstruction service, one replica (counterpart of
-the JAX package's ``serve/``).
+"""Continuous-batching reconstruction service, one replica over one or
+more cards (counterpart of the JAX package's ``serve/``).
 
 Data path::
 
@@ -14,9 +14,11 @@ Data path::
                    │
                    ▼
              ProgramCache      ``models/pipeline.reconstruct_batch`` bound
-                               to one (bucket, batch, device), built and
-                               run once on a zero batch at warmup; LRU
-                               eviction, hit/miss counters; pinned staging
+                               to one (bucket, batch, device) — or
+                               ``parallel/pipeline`` over a span of cards
+                               for a sharded bucket — built and run once
+                               on a zero batch at warmup; LRU eviction,
+                               hit/miss counters; pinned staging
                    │
                    ▼
              DeviceWorker(s)   launch the batch (the ``decode_maps``
@@ -35,8 +37,10 @@ serve`` (front end), :class:`~.service.ReconstructionService` (in-process),
 :class:`~.client.ServeClient` (stdlib client). The fleet tier runs:
 :class:`~.fleet.PeerCacheClient` (peers' content caches),
 :class:`~.router.FleetRouter` (consistent-hash admission, sticky sessions,
-handoff to a survivor) and ``cli serve --router``. Several devices and
-the sharded tier come with ROADMAP Queue 1 step 4(c).
+handoff to a survivor) and ``cli serve --router``. Several cards run as
+one worker lane each (:class:`~.lanes.DeviceLanePool`: sticky sessions,
+lane health, failover), and buckets past ``shard_min_pixels`` as one
+program over a span of cards.
 """
 
 from .batcher import Batch, BucketBatcher, BucketKey, bucket_for

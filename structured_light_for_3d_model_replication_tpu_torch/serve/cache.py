@@ -38,7 +38,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .._device import not_ported, resolve_device
+from .._device import resolve_device
 from ..utils import telemetry, trace
 from ..utils.log import get_logger
 from .batcher import BucketKey
@@ -61,9 +61,15 @@ class ProgramKey:
     """BucketKey + batch size (+ placement): one built program.
 
     ``device`` pins the program to one card (a `lanes.DeviceLane` label
-    like ``"cuda:0"``); ``None`` is the cache's own device. ``shards`` and
-    ``span`` name the JAX package's sharded cross-chip tier, which the
-    port does not run yet: such keys raise (ROADMAP Queue 1 step 4(c)).
+    like ``"cuda:0"``); ``None`` is the cache's own device. ``shards`` > 0
+    selects the sharded cross-card tier instead: one program whose camera
+    rows span that many devices (`parallel/pipeline.py`). ``span`` is the
+    sharded program's device-SET identity — the sorted labels of the exact
+    cards it runs on — so a span re-formed around a dead member is a
+    distinct program from the full-width one, and reviving the member
+    brings the still-cached full-span program back without a build. (The
+    JAX package's count-prefix key, ``shards`` without a ``span``, has no
+    router that makes it, and the port's cache refuses it.)
     """
 
     bucket: BucketKey
@@ -110,6 +116,26 @@ class _Program:
             tri_cfg=b.tri_cfg, downsample=b.downsample, device=self.device)
 
 
+class _ShardedProgram:
+    """``parallel/pipeline.reconstruct_blocks`` bound to one bucket's
+    configs and one span: ``program(blocks, calibs) -> CloudResult`` with
+    each member's row block and calibration on that member, the result
+    gathered on the host in member order."""
+
+    def __init__(self, bucket: BucketKey, members):
+        self.bucket = bucket
+        self.members = tuple(members)
+
+    def __call__(self, blocks, calibs):
+        from ..parallel import pipeline as par
+
+        b = self.bucket
+        return par.reconstruct_blocks(
+            [list(blocks)], [list(calibs)], b.col_bits, b.row_bits,
+            decode_cfg=b.decode_cfg, tri_cfg=b.tri_cfg,
+            downsample=b.downsample, out_device=torch.device("cpu"))
+
+
 class _PinnedStager:
     """One (bucket, batch) program's host → card copy: the host batch is
     written into a reusable pinned buffer, then copied ``non_blocking`` on
@@ -140,19 +166,22 @@ class ProgramCache:
     """LRU of built batch-reconstruction programs.
 
     ``calib_provider(height, width)`` returns the Calibration for a
-    bucket; it is placed once per (bucket, device) (:meth:`placed_calib`).
-    Keys without a device run on ``device`` (None means the card; the
-    caller asks for the CPU with ``device="cpu"``).
+    bucket; it is placed once per (bucket, placement)
+    (:meth:`placed_calib`). Keys without a device run on ``device`` (None
+    means the card; the caller asks for the CPU with ``device="cpu"``). A
+    sharded key's span resolves against ``devices``, the enumeration order
+    of the lane pool (None = every card).
     """
 
     def __init__(self, calib_provider, max_entries: int = 32,
                  registry: "trace.MetricsRegistry | None" = None,
-                 device=None):
+                 device=None, devices=None):
         if max_entries < 1:
             raise ValueError(f"max_entries must be >= 1, got {max_entries}")
         self.calib_provider = calib_provider
         self.max_entries = max_entries
         self.device = resolve_device(device)
+        self.devices = None if devices is None else list(devices)
         self.registry = registry if registry is not None else trace.REGISTRY
         self._lock = threading.Lock()
         self._entries: OrderedDict[ProgramKey, _Entry] = OrderedDict()
@@ -171,51 +200,77 @@ class ProgramCache:
         self._entries_gauge = self.registry.gauge(
             "serve_program_cache_entries", "resident compiled programs")
         # Placement memos (tiny, bounded by devices × buckets): one placed
-        # calibration per (bucket geometry, device), and one pinned
-        # staging buffer per resident (bucket, batch, device) program.
+        # calibration per (bucket geometry, placement), and one pinned
+        # staging buffer per member of a resident (bucket, batch,
+        # placement) program.
         self._placed_calibs: dict = {}
         self._stagers: dict = {}
 
     # -- placement -----------------------------------------------------
 
-    def device_for(self, key: ProgramKey) -> torch.device:
-        """The device ``key``'s program runs on: the lane's, or the
-        cache's own for an un-pinned key."""
-        if key.shards or key.span:
-            raise not_ported("the sharded cross-chip serve tier",
-                             "step 4(c)")
+    def placement(self, key: ProgramKey) -> tuple:
+        """The devices ``key``'s program runs on: the lane's card, the
+        cache's own device for an un-pinned key, or a sharded key's span
+        members in ENUMERATION order (`parallel/mesh.
+        resolve_device_labels`: row placement must not follow label
+        order)."""
+        if key.shards:
+            from ..parallel import mesh as pmesh
+
+            if len(key.span) != key.shards:
+                raise ValueError(f"{key.label()}: a sharded key names its "
+                                 f"{key.shards} members")
+            return tuple(pmesh.resolve_device_labels(
+                key.span, self.devices if self.devices is not None
+                else pmesh.local_devices()))
         if key.device is None:
-            return self.device
-        return label_device(key.device)
+            return (self.device,)
+        return (label_device(key.device),)
 
     def placed_calib(self, key: ProgramKey):
-        """The calibration on ``key``'s device, memoized per (bucket
-        geometry, device): every batch of a bucket reuses the same
-        tensors."""
+        """The calibration where ``key``'s program expects it — on the
+        lane's device, or one copy on each span member (a tuple) —
+        memoized per (bucket geometry, placement): every batch of a bucket
+        reuses the same tensors."""
         b = key.bucket
-        dev = self.device_for(key)
-        memo = (b.height, b.width, dev)
+        members = self.placement(key)
+        memo = (b.height, b.width, key.span or members[0])
         with self._lock:
             placed = self._placed_calibs.get(memo)
         if placed is not None:
             return placed
         calib = self.calib_provider(b.height, b.width)
-        if calib.Nc.device != dev:
-            calib = calib.to(dev)
+        if key.shards:
+            placed = tuple(calib.to(d) for d in members)
+        else:
+            placed = calib if calib.Nc.device == members[0] \
+                else calib.to(members[0])
         with self._lock:
-            placed = self._placed_calibs.setdefault(memo, calib)
+            placed = self._placed_calibs.setdefault(memo, placed)
         return placed
 
     def stage(self, key: ProgramKey, batch):
-        """One host batch array (B, F, H, W) uint8 on ``key``'s device: on
-        the card through the key's pinned buffer and a ``non_blocking``
-        copy, on the CPU the array itself. The caller drops the returned
-        tensor once its launch is done."""
-        dev = self.device_for(key)
+        """One host batch array (B, F, H, W) uint8 where ``key``'s program
+        expects it: on the lane's card through the key's pinned buffer and
+        a ``non_blocking`` copy (on the CPU the array itself); for a
+        sharded key, the batch split by rows into one block per span
+        member, each through its own pinned buffer. The caller drops what
+        it gets once its launch is done."""
+        members = self.placement(key)
         batch = np.ascontiguousarray(batch, dtype=np.uint8)
+        if not key.shards:
+            return self._staged(key, batch, members[0], 0)
+        from ..parallel import mesh as pmesh
+
+        return [self._staged(key, batch[:, :, r0:r1], dev, i)
+                for i, ((r0, r1), dev) in enumerate(zip(
+                    pmesh.blocks(batch.shape[2], len(members)), members))]
+
+    def _staged(self, key: ProgramKey, batch: np.ndarray,
+                dev: torch.device, member: int) -> torch.Tensor:
         if dev.type != "cuda":
-            return torch.from_numpy(batch)
-        memo = (key.bucket, key.batch, dev)
+            return torch.from_numpy(np.ascontiguousarray(batch))
+        memo = (key.bucket, key.batch, key.span or dev, member)
         with self._lock:
             stager = self._stagers.get(memo)
             if stager is None:
@@ -237,16 +292,18 @@ class ProgramCache:
         is not built), then one run on a zero batch of the key's exact
         shape, read back — timed as the compile."""
         b = key.bucket
-        dev = self.device_for(key)
-        program = _Program(b, dev)
+        members = self.placement(key)
+        program = (_ShardedProgram(b, members) if key.shards
+                   else _Program(b, members[0]))
         calib = self.placed_calib(key)
         t0 = time.monotonic()
-        if dev.type == "cuda":
+        if any(d.type == "cuda" for d in members):
             from ..kernels import build
 
             build.library()
-        zero = torch.zeros((key.batch, b.frames, b.height, b.width),
-                           dtype=torch.uint8, device=dev)
+        # A sharded build runs the zero batch on every member.
+        zero = self.stage(key, np.zeros(
+            (key.batch, b.frames, b.height, b.width), np.uint8))
         out = program(zero, calib)
         out.valid.any().item()
         del zero, out

@@ -11,14 +11,24 @@ package's ``serve/lanes.py``).
   each (bucket, batch) to a lane's program, and owns STICKY session →
   lane placement.
 
+A bucket whose pixel count meets ``shard_min_pixels`` routes instead to
+the sharded cross-card tier: ONE program whose camera rows span a set of
+cards (`parallel/pipeline.py`), keyed by that device SET.
+
 The pool also owns **lane health**: each distinct device carries a
 healthy → suspect → dead state machine with hysteresis (consecutive
 launch failures promote; only a successful probe revives a dead device),
 visible as ``serve_lane_state{device=}``. A dead transition fires the
-service's ``on_device_dead`` hook and sticky sessions re-pin to surviving
-lanes. The sharded cross-chip tier and its span bookkeeping are kept as
-the JAX package has them, but a sharded route raises: it comes with ROADMAP
-Queue 1 step 4(c), as does a service over more than one card.
+service's ``on_device_dead`` hook, sticky sessions re-pin to surviving
+lanes (``serve_lane_repins_total``), and the sharded tier re-forms its
+span from the LIVE device set — the widest power-of-two width the
+survivors can fill, down the 8→4→2→off ladder. Sharded launches feed the
+same health machine through ``note_sharded_failure``: N consecutive faults
+on one span fire ``on_span_suspect`` so the service can probe each member
+and convict the dead one. On revive, ``rebalance_sessions`` migrates the
+sessions that were moved off the card back home, with flap hysteresis.
+Devices are told apart by LABEL (``"cuda:1"``; host lanes ``"cpu:k"``,
+whose tensors all report ``cpu``).
 
 The pool is pure bookkeeping — no threads, no device I/O.
 """
@@ -31,7 +41,7 @@ import time
 
 import torch
 
-from .._device import not_ported
+from ..parallel.mesh import device_label, local_devices
 from ..utils import events, trace
 from ..utils.log import get_logger
 from .batcher import BucketKey
@@ -73,10 +83,6 @@ class DeviceLane:
         return f"DeviceLane({self.index}, {self.label})"
 
 
-def device_label(device: torch.device) -> str:
-    return f"{device.type}:{device.index or 0}"
-
-
 class DeviceLanePool:
     """Lane assignment + program routing over the local devices.
 
@@ -95,10 +101,8 @@ class DeviceLanePool:
                  suspect_failures: int = 2, dead_failures: int = 3,
                  sharded_suspect_failures: int = 2,
                  rebalance_flap_window_s: float = 300.0):
-        if devices is None:
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-        devices = [torch.device(d) for d in devices]
+        devices = [torch.device(d) for d in
+                   (local_devices() if devices is None else devices)]
         if max_devices is not None:
             devices = devices[:max(1, int(max_devices))]
         if not devices:
@@ -117,6 +121,10 @@ class DeviceLanePool:
                               else min(int(shard_devices), len(devices)))
         self._lock = threading.Lock()
         self._session_lane: dict[str, DeviceLane] = {}
+        # Solve meshes are keyed by the span's device SET (sorted label
+        # tuple), not a count — a 4-wide span over {1,2,3,4} and one
+        # over {0,1,2,3} are different meshes.
+        self._solve_meshes: dict[tuple, object] = {}
         # -- lane health (device-loss tier) ----------------------------
         self.registry = registry if registry is not None \
             else trace.REGISTRY
@@ -578,23 +586,37 @@ class DeviceLanePool:
         program."""
         span = self.span_for(key)
         if span:
-            raise not_ported("the sharded cross-chip serve tier",
-                             "step 4(c)")
+            return ProgramKey(bucket=key, batch=batch, shards=len(span),
+                              span=span)
         device = (lane.label if lane is not None and self.multi_device
                   else None)
         return ProgramKey(bucket=key, batch=batch, device=device)
 
     def span_jax_devices(self, span) -> list:
-        """The devices behind a sharded span: the sharded tier is not
-        ported yet."""
-        raise not_ported("the sharded cross-chip serve tier", "step 4(c)")
+        """The torch.devices behind a span, in pool enumeration order
+        (member placement must not depend on label sort). The name is the
+        JAX package's."""
+        want = set(span)
+        return [d for d in self.devices if device_label(d) in want]
 
     def solve_mesh(self, key: BucketKey):
-        """The device mesh a sharded bucket's postprocess solves over —
-        None for lane-pinned buckets; a sharded one is not ported yet."""
-        if not self.span_for(key):
+        """The `parallel/mesh.py` device mesh whose cards a sharded
+        bucket's Poisson postprocess solves on
+        (``mesh_from_cloud(device_mesh=…)``) — None for lane-pinned
+        buckets. Memoized: one Mesh per device
+        SET."""
+        span = self.span_for(key)
+        if not span:
             return None
-        raise not_ported("the sharded cross-chip serve tier", "step 4(c)")
+        with self._lock:
+            mesh = self._solve_meshes.get(span)
+            if mesh is None:
+                from ..parallel import mesh as pmesh
+
+                mesh = pmesh.serve_space_mesh(
+                    len(span), devices=self.span_jax_devices(span))
+                self._solve_meshes[span] = mesh
+            return mesh
 
     # -- sticky sessions ----------------------------------------------
 

@@ -27,13 +27,13 @@ The HTTP layer holds no state of its own — every handler delegates to the
 service object, so in-process callers (tests, bench) and HTTP clients see
 identical semantics.
 
-The service runs on ``ServeConfig.device`` (None means the card, and a
-host without one raises; the CPU serves only when asked for). The fleet
-tier runs: peers' content caches (``peers``, serve/fleet.py) and the
-session handoff volume (``handoff_dir``) behind the router
-(serve/router.py). What the JAX package runs across cards — more than one
-device, the sharded tier — raises ``NotImplementedError`` here: it comes
-with ROADMAP Queue 1 step 4(c).
+The service runs on ``ServeConfig.device`` (None means every card, and a
+host without one raises; the CPU serves only when asked for). Worker
+lanes spread over the cards, sessions
+stay on one lane's card, and buckets past ``shard_min_pixels`` run as one
+program over a span of cards (serve/lanes.py). The fleet tier runs: peers'
+content caches (``peers``, serve/fleet.py) and the session handoff volume
+(``handoff_dir``) behind the router (serve/router.py).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from .._device import not_ported, resolve_device
+from .._device import resolve_device
 from ..config import DecodeConfig, ProjectorConfig, TriangulationConfig
 from ..health import QualityGates
 from ..stream import StreamParams
@@ -95,7 +95,7 @@ _SUBMIT_FORMATS = ("ply", "stl", "mesh_ply")
 class ServeConfig:
     """Service tuning surface (docs/SERVING.md has the tuning guide)."""
 
-    # The device the replica serves on: None means the card (a host
+    # The device the replica serves on: None means every card (a host
     # without one raises); "cpu" runs the plain PyTorch versions.
     device: str | None = None
     proj: ProjectorConfig = ProjectorConfig()
@@ -107,10 +107,15 @@ class ServeConfig:
     linger_ms: float = 10.0        # max wait for batch company
     workers: int = 1               # device launch lanes
     # Device dimension (serve/lanes.py): worker lanes spread round-robin
-    # over up to this many local cards (None = all visible). Lanes on
-    # more than one card, and the sharded big-bucket tier
-    # (shard_min_pixels), come with ROADMAP Queue 1 step 4(c) and raise.
+    # over up to this many local devices (None = all of them).
+    # workers=N with N cards visible is the one-lane-per-card topology;
+    # the default workers=1 keeps the single-device service.
     devices: int | None = None
+    # Sharded big-bucket tier: a bucket whose padded H*W meets this
+    # threshold dispatches ONE cross-card program (camera rows split over
+    # parallel/mesh.py's space axis, spanning shard_devices cards; 0 = all
+    # visible) instead of serializing on a single lane — and its Poisson
+    # postprocess solves on one of those cards. None disables the tier.
     shard_min_pixels: int | None = None
     shard_devices: int = 0
     buckets: tuple = ((1080, 1920),)   # padded (H, W) shapes
@@ -208,6 +213,26 @@ class ServeConfig:
     device_probe_backoff_max_s: float = 60.0
 
 
+def _pool_devices(device) -> list | None:
+    """``ServeConfig.device`` as the lane pool's device list: one named
+    device is a pool of one, and None is every card (the pool enumerates
+    them; a host without one raises)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return None
+    return [dev]
+
+
+def _current_card(dev: torch.device):
+    """``dev`` as the thread's current CUDA device for the enclosed work; a
+    no-op on the host."""
+    import contextlib
+
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def synthetic_calib_provider(proj: ProjectorConfig, device=None):
     """Per-bucket synthetic rig calibration (the no-hardware default —
     the same `models/synthetic.default_calibration` geometry the bench
@@ -258,10 +283,16 @@ class ReconstructionService:
     def __init__(self, config: ServeConfig = ServeConfig(),
                  calib_provider=None,
                  registry: "trace.MetricsRegistry | None" = None,
-                 tracer: "trace.Tracer | None" = None):
+                 tracer: "trace.Tracer | None" = None,
+                 lane_devices=None):
+        """``lane_devices`` gives the lane pool its devices in enumeration
+        order, for a caller that picks them itself (the tests' host lanes
+        ``torch.device("cpu", k)``); None takes them from
+        ``config.device``."""
         self.config = config
-        self.device = resolve_device(config.device)
-        self._refuse_multi_card_options(config)
+        pool_devices = (_pool_devices(config.device) if lane_devices is None
+                        else [resolve_device(d) for d in lane_devices])
+        self.device = pool_devices[0] if pool_devices else resolve_device()
         # Fresh registry per service by default: parallel services (tests,
         # bench sweeps) must not sum each other's counters. Pass
         # trace.REGISTRY explicitly to meter into the process-global one.
@@ -276,10 +307,6 @@ class ReconstructionService:
         self.calib_provider = (calib_provider if calib_provider is not None
                                else synthetic_calib_provider(config.proj,
                                                              self.device))
-        self.cache = ProgramCache(self.calib_provider,
-                                  max_entries=config.max_cache_entries,
-                                  registry=self.registry,
-                                  device=self.device)
         # Fleet identity: journaled session heads carry it, so a
         # restarting replica can tell "still mine" from "a survivor
         # adopted this while I was dead" (handoff-aware recovery).
@@ -339,13 +366,14 @@ class ReconstructionService:
             max_devices=config.devices,
             shard_min_pixels=config.shard_min_pixels,
             shard_devices=config.shard_devices,
-            devices=(None if self.device.type == "cuda"
-                     and self.device.index is None else [self.device]),
+            devices=pool_devices,
             registry=self.registry)
-        if self.lanes.multi_device:
-            raise not_ported("serving across more than one device "
-                             f"({len(self.lanes.distinct_devices())} "
-                             "lanes' cards)", "step 4(c)")
+        # Sharded keys resolve their span in the pool's enumeration order.
+        self.cache = ProgramCache(self.calib_provider,
+                                  max_entries=config.max_cache_entries,
+                                  registry=self.registry,
+                                  device=self.device,
+                                  devices=self.lanes.devices)
         self.lanes.on_device_dead = self._on_device_dead
         # Sharded-fault attribution (docs/ROBUSTNESS.md § probe-
         # convict): N consecutive faults on one sharded span fire this
@@ -409,18 +437,6 @@ class ReconstructionService:
             replica_id=self.replica_id,
             lane_pool=self.lanes if self.lanes.multi_device else None,
             device=self.lanes.lane(0).device)
-
-    @staticmethod
-    def _refuse_multi_card_options(config: ServeConfig) -> None:
-        """What a replica on one device does not run yet raises (several
-        cards and the sharded tier come with ROADMAP Queue 1 step 4(c))."""
-        for name, on in (("shard_min_pixels (the sharded cross-chip tier)",
-                          config.shard_min_pixels is not None),
-                         ("devices > 1 (more than one card)",
-                          config.devices is not None
-                          and config.devices > 1)):
-            if on:
-                raise not_ported(f"ServeConfig.{name}", "step 4(c)")
 
     def _make_worker(self, name: str, lane) -> DeviceWorker:
         return DeviceWorker(self.batcher, self.cache,
@@ -834,20 +850,29 @@ class ReconstructionService:
                     # Session-lane warmup (stream/warmup.py): an adopted
                     # or recovered session must find the kernels built,
                     # the allocator's pools sized and the solver handles
-                    # made. Runs on the device sessions are built on;
-                    # it builds no ProgramKey, so the program cache's
-                    # miss count stays buckets × batch sizes.
+                    # made. Runs ONCE PER DISTINCT LANE DEVICE: a session
+                    # is sticky on its lane, and both first placement and
+                    # failover adoption must find that card warm. It
+                    # builds no ProgramKey, so the program cache's miss
+                    # count stays buckets × batch sizes.
                     from ..stream.warmup import warm_session_programs
 
-                    dev = self.sessions.device
+                    session_lanes = (self.lanes.distinct_devices()
+                                     if self.lanes.multi_device
+                                     else [None])
                     for h, w in self.config.buckets:
-                        label = f"session:{h}x{w}"
-                        report = warm_session_programs(
-                            self.config.stream, h * w,
-                            col_bits=self.config.proj.col_bits,
-                            row_bits=self.config.proj.row_bits,
-                            frame_shape=(h, w), device=dev)
-                        self._warmup_report[label] = report
+                        for lane in session_lanes:
+                            label = f"session:{h}x{w}" + (
+                                f"@{lane.label}" if lane else "")
+                            dev = (lane.device if lane is not None
+                                   else self.sessions.device)
+                            with _current_card(dev):
+                                report = warm_session_programs(
+                                    self.config.stream, h * w,
+                                    col_bits=self.config.proj.col_bits,
+                                    row_bits=self.config.proj.row_bits,
+                                    frame_shape=(h, w), device=dev)
+                            self._warmup_report[label] = report
             if recover_from:
                 self._recover()
         except BaseException:

@@ -37,8 +37,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .._device import not_ported, resolve_device
+from .._device import resolve_device
 from ..io.stl import write_stl
+from ..parallel.mesh import device_label
 from ..stream import IncrementalSession, StreamParams
 from ..utils import events
 from ..utils.log import get_logger
@@ -82,6 +83,54 @@ class SessionResultEvicted(ServeError):
     """The session finalized, but its terminal result job fell out of the
     bounded job registry — the artifact is gone; re-scan. Maps to HTTP
     410 (the one-shot result-eviction semantics applied to sessions)."""
+
+
+_PORT = __name__.split(".")[0]
+
+
+def _relocate(obj, src: torch.device, dst: torch.device, seen: dict):
+    """``obj`` with every tensor on ``src`` copied to ``dst`` and every
+    ``src`` device it keeps replaced by ``dst``: lists, dicts and the
+    attributes of the port's own objects in place, tuples (named ones
+    too) rebuilt. Host arrays and foreign objects are left as they are.
+    ``seen`` maps ``id`` to (object, result), which also keeps each walked
+    object alive, so no id is reused during the walk."""
+    key = id(obj)
+    if key in seen:
+        return seen[key][1]
+    seen[key] = (obj, obj)
+    out = obj
+    if isinstance(obj, torch.Tensor):
+        # Every host lane's tensors live on the one host device.
+        if obj.device.type == src.type and (
+                src.type == "cpu"
+                or device_label(obj.device) == device_label(src)):
+            out = obj.to(dst)
+    elif isinstance(obj, torch.device):
+        if obj == src:
+            out = dst
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            obj[i] = _relocate(v, src, dst, seen)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            obj[k] = _relocate(v, src, dst, seen)
+    elif isinstance(obj, tuple):
+        new = [_relocate(v, src, dst, seen) for v in obj]
+        if any(a is not b for a, b in zip(new, obj)):
+            out = obj._make(new) if hasattr(obj, "_make") else tuple(new)
+    elif type(obj).__module__.startswith(_PORT + "."):
+        names = list(getattr(obj, "__dict__", {}))
+        for cls in type(obj).__mro__:
+            names += [n for n in getattr(cls, "__slots__", ())
+                      if hasattr(obj, n)]
+        for name in names:
+            v = getattr(obj, name)
+            nv = _relocate(v, src, dst, seen)
+            if nv is not v:
+                object.__setattr__(obj, name, nv)
+    seen[key] = (obj, out)
+    return out
 
 
 class ServeSession:
@@ -131,14 +180,21 @@ class ServeSession:
 
     def repin(self, lane) -> None:
         """Move the session's sticky lane — the device-loss re-pin and
-        the revival rebalance (serve/lanes.py) share this path. The
-        session's state lives on its device; moving it to another card
-        comes with the multi-card service (ROADMAP Queue 1 step 4(c)),
-        so a lane on another device raises."""
+        the revival rebalance (serve/lanes.py) share this path. A lane on
+        another card takes the session's state with it, under the session
+        lock: every tensor the ``IncrementalSession`` holds on its card —
+        the fusion or TSDF volume, retained preps, preview grids, the
+        registration state, the calibration — is copied to the new card
+        (``tensor.to``, with or without peer access), and the devices it
+        builds new work on follow. Devices are compared by label (host
+        lanes' tensors all report ``cpu``). A copy off a card that is
+        truly dead fails and is not caught: losing a card's data is the
+        fleet handoff replay's domain (serve/router.py)."""
         with self.lock:
-            if lane is not None and lane.device != self.device:
-                raise not_ported("re-pinning a session to another card",
-                                 "step 4(c)")
+            if lane is not None \
+                    and device_label(lane.device) != device_label(
+                        self.device):
+                _relocate(self.session, self.device, lane.device, {})
             if lane is not self.lane:
                 self.lane_moves += 1
             self.lane = lane

@@ -22,6 +22,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..health import QualityGates, ScanFault, StopQualityError
 from ..hw import faults as hwfaults
@@ -169,6 +170,11 @@ class DeviceWorker:
     # ------------------------------------------------------------------
 
     def _run(self) -> None:
+        if self.lane is not None and self.lane.device.type == "cuda":
+            # The lane's card is this thread's current device: work the
+            # postprocess and a session's ingest place by default (and
+            # the current stream the kernels launch on) stay on it.
+            torch.cuda.set_device(self.lane.device)
         while True:
             if self._abort.is_set():
                 return
@@ -491,10 +497,16 @@ class DeviceWorker:
         # them).
         from ..models import meshing
 
+        # A sharded-bucket job solves on a card of the span its decode
+        # spanned (serve/lanes.py): this lane's card when the span holds
+        # it, else the span's first.
+        device_mesh = (self.lane_pool.solve_mesh(key)
+                       if self.lane_pool is not None else None)
         mesh = meshing.mesh_from_cloud(
             cloud, mode="watertight", depth=self.mesh_depth,
             quantile_trim=0.0,
             representation=self.mesh_representation,
+            device_mesh=device_mesh,
             device=(self.lane.device if self.lane is not None
                     else self.cache.device))
         meta.update(vertices=int(len(mesh.vertices)),

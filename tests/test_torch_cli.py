@@ -141,15 +141,19 @@ def test_dispatcher_help_and_unknown(capsys):
 @pytest.mark.parametrize("tool,step", [
     ("scan", "step 5"), ("view", "step 5"), ("lint", "step 5"),
     ("serve", "step 4")])
-def test_unported_tool_exits_2_naming_its_step(tool, step, capsys):
+def test_unported_tool_exits_2_naming_its_step(tool, step, capsys,
+                                               monkeypatch):
     """A tool whose modules the port lacks exits 2 and names its ROADMAP
-    step, without importing a module to find out; ``serve`` is ported, and
-    its multi-card option (``--devices 2``) exits 2 naming step 4(c).
+    step, without importing a module to find out; ``serve`` is ported with
+    its multi-card options since step 4(c): ``--devices 2`` on a host
+    without a card raises (no fallback to the CPU) instead of exiting 2
+    (tests/test_torch_serve.py starts it on the host).
     ``scan`` and ``view`` came with step 5's capture-and-view half: their
     ``--help`` now exits 0 (tests/test_torch_hw_scanner.py and
     tests/test_torch_viz.py run them). ``lint`` came with step 5(b): its
-    ``--list-rules`` exits 0 and lists the port's ten rules
-    (tests/test_torch_lint.py runs it). ``diagnose`` is ported
+    ``--list-rules`` exits 0 and lists the port's rules
+    (tests/test_torch_lint.py runs it), and since step 4(c) the eleventh,
+    ``sharding-readiness``. ``diagnose`` is ported
     (tests/test_torch_diagnose.py)."""
     if tool == "lint":
         assert cli.main(["lint", "--list-rules"]) == 0
@@ -158,7 +162,8 @@ def test_unported_tool_exits_2_naming_its_step(tool, step, capsys):
         assert {line.split(" ")[0] for line in out.splitlines()} == {
             "kernel-import", "foreign-import", "host-read", "implicit-dtype",
             "implicit-rng", "atomic-scatter", "silent-except", "lock-order",
-            "blocking-under-lock", "unlocked-shared-state"}
+            "blocking-under-lock", "unlocked-shared-state",
+            "sharding-readiness"}
         assert not cli._NOT_PORTED
         return
     if tool in ("scan", "view"):
@@ -169,8 +174,14 @@ def test_unported_tool_exits_2_naming_its_step(tool, step, capsys):
         assert f"usage: {tool}" in out and "not ported" not in err
         assert (tool == "view") == ("--device" in out)
         return
-    flags = ["--devices", "2"] if tool == "serve" else ["--help"]
-    assert cli.main([tool, *flags]) == 2
+    if tool == "serve":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([tool, "--devices", "2", "--shard-min-pixels", "1",
+                      "--no-warmup"])
+        assert "not ported" not in capsys.readouterr().err
+        return
+    assert cli.main([tool, "--help"]) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and step in err
 

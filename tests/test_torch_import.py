@@ -79,7 +79,9 @@ def test_every_port_module_imports_without_jax():
                  "cli.view", "analysis", "analysis.core",
                  "analysis.callgraph", "analysis.locks", "analysis.project",
                  "analysis.rules", "analysis.rules_concurrency",
-                 "analysis.__main__", "cli.lint"):
+                 "analysis.__main__", "cli.lint", "parallel",
+                 "parallel.mesh", "parallel.pipeline",
+                 "parallel.distributed"):
         assert f"{PORT}.{name}" in out, name
 
 
@@ -108,6 +110,7 @@ def test_entry_modules_do_not_load_kernel_bindings():
         from {PORT}.hw import faults
         from {PORT}.stream import warmup
         from {PORT}.utils import events, log, sanitize, telemetry, trace
+        from {PORT}.parallel import distributed, mesh, pipeline
         loaded = [m for m in sys.modules if m.startswith("{PORT}.kernels")
                   or m == "triton"]
         assert not loaded, loaded
@@ -134,6 +137,46 @@ def test_capture_and_view_modules_load_no_optional_imports():
                or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")]
         assert not bad, bad
     """)
+
+
+def test_parallel_loads_no_jax_and_needs_a_card(monkeypatch):
+    """``parallel/`` imports neither ``jax`` nor the JAX package (in a fresh
+    interpreter), and without a card its entry points raise: the default
+    mesh has no device, the default process group is ``nccl`` on the card,
+    and a mesh of cards refuses to place a batch — nothing drops to the
+    host on its own."""
+    _run(f"""
+        import sys
+        from {PORT} import parallel
+        from {PORT}.parallel import distributed, mesh, pipeline
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith("jax.")
+               or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}.")
+               or m.startswith("{PORT}.kernels")]
+        assert not bad, bad
+    """)
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        distributed,
+        mesh as pmesh,
+        pipeline as par,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="at least one device"):
+        pmesh.make_mesh()
+    monkeypatch.setattr(distributed, "_initialized", False)
+    monkeypatch.setenv("SL_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("SL_NUM_PROCESSES", "1")
+    monkeypatch.setenv("SL_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.initialize_from_env()
+    cards = pmesh.make_mesh(data=1, space=2,
+                            devices=[torch.device("cuda", 0),
+                                     torch.device("cuda", 1)])
+    stacks = np.zeros((1, 4, 8, 8), np.uint8)
+    with pytest.raises((RuntimeError, AssertionError)):
+        par.shard_inputs(stacks, None, cards)
 
 
 def test_lint_loads_no_kernel_binding_and_no_jax():

@@ -51,7 +51,8 @@ PORT_DIR = Path(tlint.__file__).resolve().parents[1]
 
 LEXICAL_RULES = {"kernel-import", "foreign-import", "host-read",
                  "implicit-dtype", "implicit-rng", "atomic-scatter",
-                 "silent-except"}
+                 "silent-except", "sharding-readiness"}
+WARN_RULES = {"sharding-readiness"}
 PROJECT_RULES = {"lock-order", "blocking-under-lock",
                  "unlocked-shared-state"}
 SHARED_RULES = {"silent-except"} | PROJECT_RULES
@@ -191,6 +192,28 @@ FIXTURES = {
         """,
     ),
 }
+
+FIXTURES["sharding-readiness"] = (
+    "parallel/mod.py",
+    """
+    import torch
+
+    def stage(x):
+        return x.to("cuda")
+    """,
+    """
+    import torch
+
+    def stage(x, member):
+        return x.to(member)
+    """,
+    """
+    import torch
+
+    def stage(x):
+        return x.to("cuda")  # torchlint: disable=sharding-readiness
+    """,
+)
 
 # rule → (triggering {rel_path: source}, clean {…}, suppressed {…}), as in
 # tests/test_jaxlint.py (the suppressions in jaxlint's spelling; the port's
@@ -462,7 +485,8 @@ def test_registry_has_the_ports_rules():
     assert set(tlint.REGISTRY) == LEXICAL_RULES == set(FIXTURES)
     assert set(tlint.PROJECT_REGISTRY) == PROJECT_RULES
     for rule in LEXICAL_RULES | PROJECT_RULES:
-        assert tlint.rule_severity(rule) == "error"
+        assert tlint.rule_severity(rule) == (
+            "warn" if rule in WARN_RULES else "error")
     assert tlint.BASELINE_NAME == "torchlint_baseline.json"
 
 
@@ -622,6 +646,29 @@ EDGE_CASES = {
         def scatter_sum(out, idx, val):
             return out.index_add_(0, idx, val)
         """, set()),
+    "the default card on the sharded path": ("serve/cache.py", """
+        import torch
+
+        from .._device import resolve_device
+
+        def place(x, calib):
+            a = torch.zeros(3, device="cuda:0")
+            b = resolve_device(None), resolve_device()
+            return x.cuda(), torch.device("cuda"), a, b
+        """, {"sharding-readiness"}),
+    "explicit cards on the sharded path": ("models/meshing.py", """
+        import torch
+
+        from .._device import resolve_device
+
+        def place(x, members, device):
+            cards = [torch.device("cuda", i) for i in range(2)]
+            return x.to(members[0]), resolve_device(device), cards
+        """, set()),
+    "the default card off the sharded path": ("stream/mod.py", """
+        def place(x):
+            return x.cuda(), x.to("cuda")
+        """, set()),
 }
 
 
@@ -635,6 +682,16 @@ def test_rule_edge_case(case, tmp_path):
 def test_index_put_counts_each_accumulating_call(tmp_path):
     rel_path, source, _ = EDGE_CASES["index_put_ accumulating"]
     assert len(_lint(tmp_path, rel_path, source)) == 2
+
+
+def test_sharding_readiness_names_each_form(tmp_path):
+    rel_path, source, _ = EDGE_CASES["the default card on the sharded path"]
+    hits = _lint(tmp_path, rel_path, source)
+    assert len(hits) == 5, hits
+    text = " ".join(v.message for v in hits)
+    for form in ("device='cuda:0'", "resolve_device(None)", ".cuda()",
+                 "torch.device('cuda')"):
+        assert form in text, form
 
 
 def test_checkout_is_linted_as_the_ports_package(tmp_path):
@@ -902,7 +959,8 @@ def test_cli_usage_and_list_rules(capsys):
     out = capsys.readouterr().out
     listed = {line.split(" ")[0] for line in out.splitlines()}
     assert listed == LEXICAL_RULES | PROJECT_RULES
-    assert out.count("(lexical") == 7 and out.count("(project") == 3
+    assert out.count("(lexical") == 8 and out.count("(project") == 3
+    assert out.count("[warn]") == len(WARN_RULES) == 1
 
 
 def test_ports_tree_is_clean_modulo_its_baseline(capsys):

@@ -257,21 +257,36 @@ def test_dense_depth_meshes_on_the_dense_solve():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(device_mesh=object(), mode="surface"), "device_mesh"),
-    (dict(device_mesh=object(), representation="tsdf"), "device_mesh"),
-    (dict(device_mesh=object()), "device_mesh"),
+    (dict(mode="surface"), "device_mesh"),
+    (dict(representation="tsdf"), "device_mesh"),
+    (dict(), "device_mesh"),
 ])
 def test_left_out_modes_name_their_step(kw, what):
+    """``device_mesh`` runs, as in the JAX package: the ball pivot and the
+    TSDF representation ignore it, and the dense solve runs on one of the
+    mesh's two host members; each is bit-equal to the call without it.
+    The pipelined worker gives the same mesh."""
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
     pts, nrm = _spheres(200, 7)
-    with pytest.raises(NotImplementedError, match="not ported yet") as exc:
-        meshing.mesh_from_cloud(ply.PointCloud(points=pts, normals=nrm),
-                                device="cpu", **kw)
-    assert what in str(exc.value) and "step" in str(exc.value)
-    # The pipelined worker carries the same error to its join.
+    two = pmesh.serve_space_mesh(2, devices=[torch.device("cpu", 0),
+                                             torch.device("cpu", 1)])
+    kw = dict(kw, depth=5, quantile_trim=0.0)
+    plain = meshing.mesh_from_cloud(ply.PointCloud(points=pts, normals=nrm),
+                                    device="cpu", **kw)
+    got = meshing.mesh_from_cloud(ply.PointCloud(points=pts, normals=nrm),
+                                  device="cpu", **{what: two}, **kw)
+    assert len(got.faces) > 100
+    assert np.array_equal(got.vertices, plain.vertices)
+    assert np.array_equal(got.faces, plain.faces)
     task = meshing.mesh_from_cloud_async(
-        ply.PointCloud(points=pts, normals=nrm), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        task.result(timeout=60)
+        ply.PointCloud(points=pts, normals=nrm), device="cpu",
+        **{what: two}, **kw)
+    joined = task.result(timeout=60)
+    assert np.array_equal(joined.vertices, got.vertices)
+    assert np.array_equal(joined.faces, got.faces)
     with pytest.raises(ValueError, match="representation"):
         meshing.mesh_from_cloud(ply.PointCloud(points=pts),
                                 representation="voxels", device="cpu")

@@ -160,3 +160,42 @@ def test_write_ply_reads_back_with_jax_reader(tmp_path, rng, binary):
     np.testing.assert_allclose(back.points, cloud.points, atol=atol)
     np.testing.assert_allclose(back.normals, cloud.normals, atol=atol)
     assert np.array_equal(back.colors, cloud.colors)
+
+
+def test_threaded_frame_shaders_equal_sequential(synth_rig):
+    """A stop's ``FrameShader`` does its matrix products under the render
+    lock, so eight shaders built at once in a thread pool (as
+    ``chip_smoke.py`` renders a ring) equal the sequential build bit for
+    bit, and stop 0's stack equals the JAX package's render."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from structured_light_for_3d_model_replication_tpu.models import (
+        synthetic as jsynthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    cam_K, proj_K, R, T = synth_rig
+    scenes = [synthetic.rotated_scene(synthetic.Scene(), 15.0 * k)
+              for k in range(8)]
+
+    def build(scene):
+        shader = synthetic.FrameShader(scene, cam_K, proj_K, R, T, CAM_H,
+                                       CAM_W, SMALL_PROJ)
+        return shader.ground_truth, (shader._ui, shader._vi, shader._lit)
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        threaded = list(ex.map(build, scenes))
+    sequential = [build(sc) for sc in scenes]
+    for (tg, ta), (sg, sa) in zip(threaded, sequential):
+        assert tg.keys() == sg.keys()
+        for k in sg:
+            assert np.array_equal(tg[k], sg[k]), k
+        for x, y in zip(ta, sa):
+            assert np.array_equal(x, y)
+    stack, _ = synthetic.render_scan(scenes[0], cam_K, proj_K, R, T, CAM_H,
+                                     CAM_W, SMALL_PROJ)
+    jstack, _ = jsynthetic.render_scan(jsynthetic.Scene(), cam_K, proj_K, R,
+                                       T, CAM_H, CAM_W, SMALL_PROJ)
+    assert np.array_equal(stack, jstack)

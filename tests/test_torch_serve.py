@@ -268,8 +268,9 @@ def test_http_backpressure_429_with_retry_after(stacks):
 
 def test_program_cache_lru_and_pinned_placement():
     """The port's cache on the CPU: LRU eviction and counters as the JAX
-    cache counts them, the calibration placed once per bucket, and a CPU
-    batch staged as the host array itself."""
+    cache counts them, the calibration placed once per bucket, a CPU
+    batch staged as the host array itself, and a sharded key's program
+    over host members."""
     tiny = ProjectorConfig(width=16, height=8)
 
     def key(h, w):
@@ -296,20 +297,45 @@ def test_program_cache_lru_and_pinned_placement():
     staged = cache.stage(keys[1], batch)
     assert staged.device.type == "cpu" and np.array_equal(staged.numpy(),
                                                           batch)
-    with pytest.raises(NotImplementedError, match="step 4"):
-        cache.device_for(ProgramKey(bucket=keys[0].bucket, batch=1,
-                                    shards=2))
+    # A sharded key runs over its span's members in the cache's
+    # enumeration order: the batch staged as one row block a member, one
+    # calibration each, and the result equal to the one-device program's.
+    host = [torch.device("cpu", k) for k in range(3)]
+    spanned = ProgramCache(synthetic_calib_provider(tiny, "cpu"),
+                           registry=trace.MetricsRegistry(), device="cpu",
+                           devices=host)
+    sharded = ProgramKey(bucket=keys[0].bucket, batch=1, shards=2,
+                         span=("cpu:2", "cpu:0"))
+    assert spanned.placement(sharded) == (host[0], host[2])
+    grey = np.arange(tiny.n_frames * 64, dtype=np.uint8).reshape(
+        1, tiny.n_frames, 8, 8)
+    blocks = spanned.stage(sharded, grey)
+    assert [tuple(b.shape) for b in blocks] == [(1, tiny.n_frames, 4, 8)] * 2
+    calibs = spanned.placed_calib(sharded)
+    assert len(calibs) == 2 and calibs is spanned.placed_calib(sharded)
+    got = spanned.get(sharded)(blocks, calibs)
+    want = cache.get(keys[0])(cache.stage(keys[0], grey),
+                              cache.placed_calib(keys[0]))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert spanned.stats()["entries"] == [sharded.label()]
 
 
 def test_service_needs_a_card_and_refuses_fleet_options(monkeypatch,
                                                         tmp_path):
     """No fallback: the default device is the card, and without one the
-    service raises. The fleet tier's options now start a replica (its
-    peer cache built, its handoff stream open); what runs across cards
-    raises NotImplementedError naming step 4(c)."""
+    service raises — a listed card too. The fleet tier's options start a
+    replica (its peer cache built, its handoff stream open), and so do the
+    multi-card ones: on one host device the sharded tier's span is empty,
+    so every bucket routes lane-pinned, as the JAX pool routes on one
+    device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ReconstructionService(ServeConfig(proj=PROJ, buckets=((H, W),)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReconstructionService(
+            ServeConfig(proj=PROJ, buckets=((H, W),)),
+            lane_devices=(torch.device("cuda", 0), torch.device("cuda", 1)))
     peered = ReconstructionService(_config(
         ServeConfig, PROJ, content_cache=True,
         peers=("http://127.0.0.1:1",)))
@@ -322,17 +348,21 @@ def test_service_needs_a_card_and_refuses_fleet_options(monkeypatch,
         assert handoff.handoff.list_sessions() == []
     finally:
         assert handoff.drain(timeout=WAIT_S)
-    for bad in (dict(shard_min_pixels=1), dict(devices=2)):
-        with pytest.raises(NotImplementedError, match=r"step 4\(c\)"):
-            ReconstructionService(_config(ServeConfig, PROJ, **bad))
+    for opts in (dict(shard_min_pixels=1), dict(devices=2)):
+        svc = ReconstructionService(_config(ServeConfig, PROJ, **opts))
+        assert not svc.lanes.multi_device
+        assert svc.lanes.span_devices() == ()
+        key = svc.lanes.route(svc._bucket_key(H, W), 1, svc.lanes.lane(0))
+        assert key.shards == 0 and key.device is None
 
 
 def test_cli_serve_fleet_options_exit_2(capsys, tmp_path):
     """``--router`` without ``--replicas`` and ``--handoff-dir`` without
     ``--store-dir`` exit 2 as the JAX tool does; a replica with
     ``--peers`` and ``--handoff-dir`` starts (tests/test_torch_router.py
-    runs the router itself); the multi-card options exit 2 naming step
-    4(c)."""
+    runs the router itself), with the multi-card options ``--devices`` and
+    ``--shard-min-pixels`` (one host device: lane-pinned, its stats
+    saying so)."""
     import subprocess
     import sys
 
@@ -345,9 +375,11 @@ def test_cli_serve_fleet_options_exit_2(capsys, tmp_path):
     assert cli_serve.main(["--handoff-dir", str(tmp_path / "h"),
                            "--device", "cpu"]) == 2
     assert "requires --store-dir" in capsys.readouterr().err
-    for argv in (["--shard-min-pixels", "1"], ["--devices", "2"]):
-        assert cli_serve.main(argv + ["--device", "cpu"]) == 2
-        assert "step 4(c)" in capsys.readouterr().err
+    for argv, field, value in ((["--shard-min-pixels", "1"],
+                                "shard_min_pixels", 1),
+                               (["--devices", "2"], "devices", 2)):
+        assert getattr(cli_serve.build_parser().parse_args(argv),
+                       field) == value
     args = cli_serve.build_parser().parse_args([])
     assert args.device == "cuda" and args.queue_depth == \
         ServeConfig().queue_depth
@@ -358,7 +390,8 @@ def test_cli_serve_fleet_options_exit_2(capsys, tmp_path):
          "--proj-height", "32", "--buckets", f"{H}x{W}", "--batch-sizes",
          "1", "--no-warmup", "--store-dir", str(tmp_path / "store"),
          "--handoff-dir", str(tmp_path / "handoff"), "--peers",
-         "http://127.0.0.1:1", "--replica-id", "r-cli"],
+         "http://127.0.0.1:1", "--replica-id", "r-cli", "--devices", "2",
+         "--shard-min-pixels", "1"],
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         stderr=subprocess.PIPE, text=True)
     try:
@@ -378,6 +411,9 @@ def test_cli_serve_fleet_options_exit_2(capsys, tmp_path):
         health = ServeClient(f"http://127.0.0.1:{port}",
                              timeout_s=WAIT_S).healthz()
         assert health["replica_id"] == "r-cli"
+        lanes = health["lanes"]
+        assert lanes["devices"] == ["cpu:0"]
+        assert lanes["span_devices"] == [] and lanes["shard_min_pixels"] == 1
         proc.terminate()
         assert proc.wait(timeout=WAIT_S) == 0
     finally:
