@@ -19,6 +19,7 @@ serving tier over every card the machine has).
     python3 chip_smoke.py --capture-only   # build + the capture loop (8f)
     python3 chip_smoke.py --lint-only      # build + files phase + lint (8g)
     python3 chip_smoke.py --multi-card-only  # build + the ring + 8h
+    python3 chip_smoke.py --parity-only    # build + the ring + 8i
     python3 chip_smoke.py --diagnose-determinism  # deterministic mode
 
 Phases, in order; any failure exits non-zero before the result line:
@@ -195,8 +196,8 @@ Phases, in order; any failure exits non-zero before the result line:
    and ``--plane``, stop 0 ``--outliers`` — the brick kernel — stop 0
    ``--compare`` stop 1 with ``--icp`` and the cleanup's depth-10 STL),
    each PNG non-empty, the outlier mask equal to the same
-   sweep's on the host by the kernel's plain version, and the tool's PNG
-   to the host mask's render;
+   sweep's with the kernel swapped for its plain version, and the tool's
+   PNG to that mask's render;
 8g. the lint and the native bindings (``--lint-only``: build, the ring's
    render, the files phase, this phase), after the fleet, each step with
    its seconds and no kernel launch: (a) ``python -m <port>.cli lint`` in a
@@ -223,8 +224,9 @@ Phases, in order; any failure exits non-zero before the result line:
    result bit-equal to the unsharded ``reconstruct_batch``, one
    ``decode_maps`` launch a member; (b) ``mesh_from_cloud`` of the ring's
    merged cloud at depth 8 (the dense solve) with a ``device_mesh`` over
-   this card, its vertices and faces bit-equal to the call without one,
-   each solve's seconds; (c)
+   this card, its grid bit-equal to the call without one (the extraction
+   then runs once) and so its vertices and faces, each solve's seconds;
+   (c)
    ``ReconstructionService`` with ``devices=1`` and with
    ``shard_min_pixels`` beside the plain service on two 1080p stops:
    lane-pinned on one card, every PLY byte-equal; (d)
@@ -240,14 +242,36 @@ Phases, in order; any failure exits non-zero before the result line:
    with the first card convicted by the probe, the span re-formed and
    the card revived; a ``{"multi_card": …}`` line says
    what ran and what one card could not run;
+8i. the JAX package's surface that slice 17 closed (``--parity-only``:
+   build, the ring's render, this phase, (e) on a replica of its own),
+   after the deep phase, each part with its seconds: (a) bench config 8
+   as written (``bench.py:645-700``: the ``"poisson"`` lane, sequential,
+   ``expected_stops=24``) and the same session without
+   ``expected_stops``, each extracting its own mesh: cloud, mesh and
+   launches bit-equal, its ``decode_maps``, ``nearest_one`` and
+   ``matvec_band`` launches; (b) session T's settings with
+   ``tsdf_carve_steps=0`` bit-equal to session T (previews' volume
+   included), then with 24 carving steps: ``tsdf_combine`` launched and
+   the final mesh bit for bit as in session T (carving reaches the
+   previews alone), the carved previews within 1 mm (median) of the
+   analytic surface beside the uncarved ones, the preview voxels carving
+   reset printed; (c) the preconditioner constants off their defaults
+   refused by name before any launch (README, "Deliberate
+   differences"); (d) config 1's single view: stop 0 through
+   ``pipeline.reconstruct`` on the card and the port's NumPy oracle on
+   the host, decode maps equal, points within ``rtol=1e-4, atol=1e-2``,
+   both walls; (e) in the serve phase's replica, ``POST /session
+   {"expected_stops": 4}`` answers 200 and a create made to fail leaves
+   the tenant's tokens where they were;
 9. each phase's wall seconds and the total on one line, a ``kernels`` JSON
    line (``matvec_band`` and ``classify_bricks`` also carry their numbers
    on 3d's band and each deep row's launches under ``deep_3d``; every
    kernel its launches by tool in the files phase under ``files``, in the
    calibration phase under ``calibration``, in the serve phase under
    ``serve``, over the fleet's replicas and the diagnose probe under
-   ``fleet``, by part and view mode of phase 8f under ``capture``, and
-   ``decode_maps`` its launches in phase 8h under ``multi_card``),
+   ``fleet``, by part and view mode of phase 8f under ``capture``, by
+   part of phase 8i under ``parity``, and ``decode_maps`` its launches in
+   phase 8h under ``multi_card``),
    the card line again, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2270,7 +2294,9 @@ def mesh_path(dev, merged, scene, profile: bool = False):
     _sync(dev)
     poisson_matvec.matvec_band.launches = 0
     stats2 = {}
-    with cg_matvecs(dev) as seen, corner_phases() as corners:
+    # The repeat's checks read vertices and faces alone.
+    with cg_matvecs(dev) as seen, corner_phases() as corners, \
+            no_vertex_normals():
         mesh2 = meshing.mesh_360(cloud(), os.devnull, depth=10,
                                  quantile_trim=0.0, cg_iters=100,
                                  solve_stats=stats2, device=dev)
@@ -2344,6 +2370,47 @@ def torch_equal_bits(a, b) -> bool:
     import torch
 
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@contextlib.contextmanager
+def extract_once(name: str, fields: tuple[str, ...]):
+    """While open, ``ops/marching.<name>`` (the extraction a mesh call ends
+    in) runs once a distinct grid: a later call on a grid whose ``fields``
+    are bit-equal to the first call's gets the first call's mesh, so a
+    check built on it holds the grids, not the meshes. The yielded dict
+    counts such calls under ``"reused"`` and the others under
+    ``"extracted"``."""
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        marching,
+    )
+
+    real = getattr(marching, name)
+    seen = {"extracted": 0, "reused": 0}
+    first = {}
+
+    def same(a, b) -> bool:
+        a, b = a.cpu(), b.cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        return torch_equal_bits(a, b) if a.is_floating_point() \
+            else bool((a == b).all())
+
+    def once(grid, *args, **kw):
+        if first and all(same(getattr(grid, f), getattr(first["grid"], f))
+                         for f in fields):
+            seen["reused"] += 1
+            return first["mesh"]
+        mesh = real(grid, *args, **kw)
+        seen["extracted"] += 1
+        if not first:
+            first.update(grid=grid, mesh=mesh)
+        return mesh
+
+    setattr(marching, name, once)
+    try:
+        yield seen
+    finally:
+        setattr(marching, name, real)
 
 
 # Op classes that add floats as atomics on the card, or whose order
@@ -2486,10 +2553,14 @@ def stream_params(representation: str):
         tsdf_grid_depth=8, tsdf_max_bricks=16_384, **lane)
 
 
-def run_session(dev, ring, representation: str, counters):
+def run_session(dev, ring, representation: str, counters, params=None,
+                label: str | None = None, previews: list | None = None):
     """24 × ``add_stop`` then ``finalize(overlap=True)``, the launch
-    counters zeroed just before and read just after. Returns (session,
-    finalize result, launches, [(stop, reason, overlap)] of the skipped)."""
+    counters zeroed just before and read just after; ``params`` (default
+    :func:`stream_params`) and ``label`` (default the representation) for
+    phase 8i's variants; ``previews``, when given, gets each stop's
+    preview mesh (None for a stop without one). Returns (session, finalize
+    result, launches, [(stop, reason, overlap)] of the skipped)."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch.stream import (
@@ -2497,6 +2568,8 @@ def run_session(dev, ring, representation: str, counters):
     )
 
     proj = ring["proj"]
+    params = params or stream_params(representation)
+    representation = label or representation
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2504,11 +2577,13 @@ def run_session(dev, ring, representation: str, counters):
         fn.launches = 0
     t0 = time.perf_counter()
     sess = IncrementalSession(ring["calib"], proj.col_bits, proj.row_bits,
-                              params=stream_params(representation),
+                              params=params,
                               scan_id=f"smoke-{representation}", device=dev)
     metas, first_preview_s, cg, skipped = [], None, [], []
     for k in range(N_STOPS):
         r = sess.add_stop(ring["stacks"][k])
+        if previews is not None:
+            previews.append(sess.preview if r.preview else None)
         if not r.fused:
             skipped.append((k, r.reason, round(r.overlap or 0.0, 5)))
         if r.preview:
@@ -2566,20 +2641,8 @@ def run_session(dev, ring, representation: str, counters):
     return sess, fin, launches, skipped
 
 
-def stream_path(dev, ring):
-    """Sessions T (``"tsdf"``) and P (``"poisson"``) on the headline ring,
-    then the overlap check on session T's cloud. Returns session T's
-    launch counts."""
-    import tempfile
-
-    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
-        PointCloud,
-        read_ply_mesh,
-        write_ply_mesh,
-    )
-    from structured_light_for_3d_model_replication_tpu_torch.models import (
-        meshing,
-    )
+def session_counters() -> dict:
+    """Every kernel's wrapper by name, for :func:`run_session`."""
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         decode,
         marching_classify,
@@ -2592,13 +2655,32 @@ def stream_path(dev, ring):
         brick_knn_cells,
     )
 
-    counters = {"decode_maps": decode.decode_maps,
-                "nearest_one": nn.nearest_one,
-                "matvec_band": poisson_matvec.matvec_band,
-                "classify_bricks": marching_classify.classify_bricks,
-                "tsdf_combine": tsdf_combine.tsdf_combine,
-                "brick_knn_cells": brick_knn_cells,
-                "composite_cells": splat_composite.composite}
+    return {"decode_maps": decode.decode_maps,
+            "nearest_one": nn.nearest_one,
+            "matvec_band": poisson_matvec.matvec_band,
+            "classify_bricks": marching_classify.classify_bricks,
+            "tsdf_combine": tsdf_combine.tsdf_combine,
+            "brick_knn_cells": brick_knn_cells,
+            "composite_cells": splat_composite.composite}
+
+
+def stream_path(dev, ring):
+    """Sessions T (``"tsdf"``) and P (``"poisson"``) on the headline ring,
+    then the overlap check on session T's cloud. Returns session T's
+    launch counts and ``{"sess", "fin", "launches"}`` of session T (phase
+    8i (b)'s reference)."""
+    import tempfile
+
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
+        read_ply_mesh,
+        write_ply_mesh,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+
+    counters = session_counters()
     spheres = synthetic_spheres(ring["scene"])
 
     # Session T: the default lane at full width, the gate on.
@@ -2687,7 +2769,7 @@ def stream_path(dev, ring):
         fail(f"session poisson: classify_bricks "
              f"{launches_p['classify_bricks']} launches (want 1), "
              f"tsdf_combine {launches_p['tsdf_combine']} (want 0)")
-    return launches_t
+    return launches_t, {"sess": sess, "fin": fin, "launches": launches_t}
 
 
 # ---------------------------------------------------------------------------
@@ -3601,7 +3683,10 @@ def small_rig_agreement(dev) -> None:
     # two meshes ≤ 0.25 voxel. A block budget just above the band's ~14k
     # blocks keeps the host run's fields small (every field spans the
     # budget): 16,384 blocks, where 32,768 took up to 66.8 s of host time
-    # — a cut to fit the capture phase (PERF.md §4).
+    # — a cut to fit the capture phase (PERF.md §4). Each extracts as its
+    # device does by default: the card with the device extractor, the host
+    # with the NumPy marching oracle, an extractor independent of the
+    # card's.
     from scipy.spatial import cKDTree
 
     from structured_light_for_3d_model_replication_tpu_torch.models import (
@@ -3859,6 +3944,24 @@ def host_normals_clock():
         TriangleMesh.compute_vertex_normals = real
 
 
+@contextlib.contextmanager
+def no_vertex_normals():
+    """While open, ``TriangleMesh.compute_vertex_normals`` (the host's
+    ``np.add.at`` passes, ~6 s for a 13 M-face extraction) does nothing:
+    for the runs whose checks read vertices and faces alone (a repeat, a
+    gated variant), not for a run whose wall is a metric."""
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        TriangleMesh,
+    )
+
+    real = TriangleMesh.compute_vertex_normals
+    TriangleMesh.compute_vertex_normals = lambda mesh: None
+    try:
+        yield
+    finally:
+        TriangleMesh.compute_vertex_normals = real
+
+
 def deep_solve(dev, pts, nrm, depth: int, max_blocks: int, extract: bool,
                keep: bool = False, **knobs) -> dict:
     """One row: ``reconstruct_sparse`` (``cg_iters=100``, the bench's
@@ -4047,9 +4150,11 @@ def deep_mesh_path(dev, n: int = DEEP_N, max_blocks: int = DEEP_MAX_BLOCKS):
         pts_np, nrm_np = deep_sphere(n, r_sphere)
         pts = torch.from_numpy(pts_np).to(dev)
         nrm = torch.from_numpy(nrm_np).to(dev)
-        runs = [deep_solve(dev, pts, nrm, depth, max_blocks, True,
-                           keep=(label == "3d" and rep == 1))
-                for rep in range(2)]
+        # The warm-up's checks read vertices and faces alone.
+        with no_vertex_normals():
+            runs = [deep_solve(dev, pts, nrm, depth, max_blocks, True)]
+        runs.append(deep_solve(dev, pts, nrm, depth, max_blocks, True,
+                               keep=(label == "3d")))
         deep_repeat(*runs, label)
         row = runs[1]
         deep_gates(row, r_sphere, label)
@@ -4068,8 +4173,9 @@ def deep_mesh_path(dev, n: int = DEEP_N, max_blocks: int = DEEP_MAX_BLOCKS):
     for label, knobs in (("3d vcycle", dict(preconditioner="vcycle")),
                          ("3d chebyshev", dict(preconditioner="chebyshev")),
                          ("3d additive bf16", dict(fine_dtype="bfloat16"))):
-        row = deep_solve(dev, keep["pts"], keep["nrm"], 14, max_blocks, True,
-                         **knobs)
+        with no_vertex_normals():    # the gates read the vertices alone
+            row = deep_solve(dev, keep["pts"], keep["nrm"], 14, max_blocks,
+                             True, **knobs)
         deep_gates(row, 50.0, label)
         deep_print(row, label)
         d_med, d_p90 = row["med"] - base["med"], row["p90"] - base["p90"]
@@ -4120,6 +4226,387 @@ def deep_kernel_timings(band, corners) -> tuple[dict, dict]:
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     return ({k: mv.get(k) for k in keys} | {"max_abs_err": 0.0},
             {k: cl.get(k) for k in keys} | {"max_abs_err": 0.0})
+
+
+# ---------------------------------------------------------------------------
+# Phase 8i: the rest of the JAX package's surface (slice 17)
+# ---------------------------------------------------------------------------
+
+CARVE_STEPS = 24               # the JAX package's TestFreeSpaceCarving
+#: 8i (c): the preconditioner constants off their defaults, each under the
+#: scheme that reads it: (knob, value, scheme).
+REFUSED_KNOBS = (("cheby_degree", 6, "chebyshev"),
+                 ("cheby_lmin", 0.1, "chebyshev"),
+                 ("cheby_lmax", 2.5, "chebyshev"),
+                 ("smooth_omega", 0.7, "vcycle"),
+                 ("precond_coarse_iters", 12, "vcycle"))
+ORACLE_RTOL, ORACLE_ATOL = 1e-4, 1e-2   # tests/test_triangulate.py:60
+
+
+def config8_params(expected_stops):
+    """Bench config 8 as written (``bench.py:645-655``): the ``"poisson"``
+    lane, sequential, ``model_cap=131_072``, ``preview_points=16_384``,
+    ``preview_depth=6``, ``final_depth=10``, ``expected_stops``, on the
+    headline ring's merge settings."""
+    from structured_light_for_3d_model_replication_tpu_torch.stream import (
+        StreamParams,
+    )
+
+    base = scan_params(STEP_DEG)
+    return StreamParams(
+        merge=base.merge, method="sequential", view_cap=base.view_cap,
+        model_cap=131_072, preview_points=16_384, preview_depth=6,
+        final_depth=10, expected_stops=expected_stops,
+        representation="poisson")
+
+
+def finals_equal(a, b) -> dict:
+    """Bit-equality of two sessions' finalize results, field by field."""
+    return {"poses": np.array_equal(a.poses, b.poses),
+            "points": np.array_equal(a.cloud.points, b.cloud.points),
+            "colors": np.array_equal(a.cloud.colors, b.cloud.colors),
+            "normals": np.array_equal(a.cloud.normals, b.cloud.normals),
+            "vertices": np.array_equal(a.mesh.vertices, b.mesh.vertices),
+            "faces": np.array_equal(a.mesh.faces, b.mesh.faces)}
+
+
+def parity_config8(dev, ring) -> dict:
+    """8i (a): bench config 8 as written (``expected_stops=24``), then the
+    same session without ``expected_stops``: poses, cloud, mesh and
+    launches bit-equal, each session extracting its own mesh on the card
+    (the port seeds each edge from (seed, edge index); the JAX package's
+    key schedule has no counterpart), and the written one launches
+    ``decode_maps``, ``nearest_one`` and ``matvec_band``. Returns its
+    launches."""
+    counters = session_counters()
+    runs = {}
+    for name, expected in (("config 8", 24), ("config 8 unhinted", None)):
+        t0 = time.perf_counter()
+        sess, fin, launches, skipped = run_session(
+            dev, ring, "poisson", counters, params=config8_params(expected),
+            label=name)
+        runs[name] = (fin, launches, time.perf_counter() - t0)
+        del sess
+    (fin, launches, wall), (fin_u, launches_u, wall_u) = runs.values()
+    same = finals_equal(fin, fin_u) | {"launches": launches == launches_u}
+    print(f"8i (a) config 8 as written (expected_stops=24): "
+          f"{len(fin.cloud)} points, {len(fin.mesh.faces)} faces in "
+          f"{wall:.3f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; without "
+          f"expected_stops {wall_u:.3f} s; bit-equal {same}", flush=True)
+    if not all(same.values()):
+        fail(f"8i (a): expected_stops=24 changed the session: {same}")
+    for name in ("decode_maps", "nearest_one", "matvec_band"):
+        if launches[name] <= 0:
+            fail(f"8i (a): config 8 never launched {name}")
+    return launches
+
+
+def parity_carving(dev, ring, session_t) -> dict:
+    """8i (b): session T's settings with ``tsdf_carve_steps=0`` given, bit
+    for bit session T (poses, cloud, final mesh, the preview volume), then
+    with ``tsdf_carve_steps=24`` (``carve_weight`` 0.25, the default).
+    Carving reaches the previews alone, as in the JAX package, so the
+    carved session's final mesh must be session T's bit for bit, and its
+    ``tsdf_combine`` launches session T's. What carving changes is held:
+    the scene is static, so the true surface must survive in the carved
+    previews. At the last stop where both previews have faces, the carved
+    preview keeps at least half the uncarved one's faces; there and at
+    the carved session's last preview (the uncarved ones empty earlier),
+    its median distance to the analytic surface is at most the uncarved
+    preview's at that shared stop plus a tenth of a preview voxel. (The
+    uncarved preview is the yardstick: a 6 mm TSDF preview lies ~0.2
+    voxel from the surface even on exact points, in both packages alike,
+    ``scripts/torch_tsdf_preview_error.py``, and further on this ring.)
+    Carving must also reset or decay some preview voxel. Returns the
+    carved run's launches."""
+    import dataclasses
+
+    import torch
+
+    counters = session_counters()
+    spheres = synthetic_spheres(ring["scene"])
+    ref_sess, ref_fin = session_t["sess"], session_t["fin"]
+    out, previews = {}, {}
+    for steps in (0, CARVE_STEPS):
+        params = dataclasses.replace(stream_params("tsdf"),
+                                     tsdf_carve_steps=steps)
+        t0 = time.perf_counter()
+        previews[steps] = []
+        sess, fin, launches, _ = run_session(
+            dev, ring, "tsdf", counters, params=params,
+            label=f"tsdf carve {steps}", previews=previews[steps])
+        out[steps] = (sess, fin, launches, time.perf_counter() - t0)
+    sess0, fin0, launches0, _ = out[0]
+    v_ref, v0 = ref_sess.previewer.volume.state, sess0.previewer.volume.state
+    same = finals_equal(ref_fin, fin0) | {
+        "volume": all(torch.equal(getattr(v_ref, f), getattr(v0, f))
+                      for f in ("tsdf", "weight", "rgb", "brick_coords")),
+        "launches": launches0 == session_t["launches"]}
+    print(f"8i (b) tsdf_carve_steps=0 against session T: bit-equal {same}",
+          flush=True)
+    if not all(same.values()):
+        fail(f"8i (b): tsdf_carve_steps=0 differs from session T: {same}")
+    sess_c, fin_c, launches_c, wall_c = out[CARVE_STEPS]
+    w_c = sess_c.previewer.volume.state.weight
+    w_0 = v0.weight
+    reset = int(((w_0 > 0) & (w_c == 0)).sum())
+    decayed = int((w_c < w_0).sum())
+    observed = int((w_0 > 0).sum())
+    final_same = finals_equal(ref_fin, fin_c)
+
+    def faces(m):
+        return 0 if m is None else len(m.faces)
+
+    def median_mm(m):
+        if not faces(m):
+            return float("nan")
+        return float(np.median(surface_distance(
+            np.asarray(m.vertices, np.float64), spheres)))
+
+    voxel = float(sess_c.previewer.stats()["voxel_size"])
+    carved, plain = previews[CARVE_STEPS], previews[0]
+    both = [k for k in range(N_STOPS) if faces(carved[k]) and faces(plain[k])]
+    last = max((k for k in range(N_STOPS) if faces(carved[k])), default=None)
+    held = {}
+    for k in sorted({*both[-1:], *([] if last is None else [last])}):
+        held[k] = {"carved_faces": faces(carved[k]),
+                   "uncarved_faces": faces(plain[k]),
+                   "carved_median_mm": median_mm(carved[k]),
+                   "uncarved_median_mm": median_mm(plain[k])}
+    print(f"8i (b) tsdf_carve_steps={CARVE_STEPS}: {wall_c:.3f} s; preview "
+          f"faces per stop {[faces(m) for m in carved]} (uncarved "
+          f"{[faces(m) for m in plain]}); previews ({voxel:g} mm voxels) "
+          f"against the scene's surface by stop {json.dumps(held)}; "
+          f"carving reset {reset} and "
+          f"decayed {decayed} of {observed} observed preview voxels; final "
+          f"mesh {len(fin_c.mesh.faces)} faces, bit-equal to session T's "
+          f"{final_same}; tsdf_combine {launches_c['tsdf_combine']} "
+          f"launches (session T {session_t['launches']['tsdf_combine']})",
+          flush=True)
+    if launches_c["tsdf_combine"] != session_t["launches"]["tsdf_combine"]:
+        fail("8i (b): the carved session's tsdf_combine launches differ "
+             "from session T's")
+    if not all(final_same.values()):
+        fail(f"8i (b): carving reached the final mesh: {final_same}")
+    if not both or last is None:
+        fail("8i (b): no stop where both previews have faces")
+    h = held[both[-1]]
+    bound = h["uncarved_median_mm"] + 0.1 * voxel
+    if 2 * h["carved_faces"] < h["uncarved_faces"]:
+        fail(f"8i (b): carving took the preview at stop {both[-1]} from "
+             f"{h['uncarved_faces']} to {h['carved_faces']} faces")
+    for k, h in held.items():
+        if not h["carved_median_mm"] <= bound:
+            fail(f"8i (b): the carved preview at stop {k} is "
+                 f"{h['carved_median_mm']:.3f} mm from the scene's surface "
+                 f"(median), over {bound:.3f} mm, the uncarved preview's "
+                 f"plus a tenth of a {voxel:g} mm voxel")
+    if reset + decayed == 0:
+        fail("8i (b): tsdf_carve_steps=24 carved no preview voxel")
+    return launches_c
+
+
+def parity_refused(dev) -> dict:
+    """8i (c): the JAX package's preconditioner constants off their
+    defaults (``REFUSED_KNOBS``, under the scheme that reads each) are
+    refused by name on the card, before the solve launches a kernel: the
+    port runs each scheme with the JAX package's default constants, and
+    no caller of the port, ``bench.py`` included, sets another (README,
+    "Deliberate differences"). Returns the launches made meanwhile
+    (none)."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson_sparse,
+    )
+
+    counters = session_counters()
+    pts, nrm = (torch.from_numpy(a).to(dev) for a in deep_sphere(4096, 50.0))
+    refused = {}
+    for fn in counters.values():
+        fn.launches = 0
+    for knob, value, scheme in REFUSED_KNOBS:
+        params = poisson_sparse.PoissonParams(
+            preconditioner=scheme, **{knob: value})
+        try:
+            poisson_sparse.reconstruct_sparse(pts, nrm, params=params)
+            refused[knob] = False
+        except ValueError as e:
+            refused[knob] = str(e).startswith(f"{knob}={value!r}: ")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"8i (c) preconditioner constants off their defaults refused by "
+          f"name: {refused}; launches meanwhile "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if not all(refused.values()) or any(launches.values()):
+        fail(f"8i (c): a constant off its default was not refused before "
+             f"any launch: {refused}, {launches}")
+    return launches
+
+
+def parity_single_view(dev, ring) -> dict:
+    """8i (d): bench config 1's single view — stop 0 at 1080p through
+    ``models/pipeline.reconstruct`` on the card and through the port's
+    NumPy oracle (``decode_stack_np``, ``triangulate_np``) on the host:
+    decode maps equal exactly, the valid pixels the same, the points
+    within tests/test_triangulate.py's ``rtol=1e-4, atol=1e-2``; both
+    walls printed. Returns the card run's launches."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        oracle,
+        pipeline,
+        synthetic,
+    )
+
+    zero, read = kernel_counters()
+    proj, stack = ring["proj"], ring["stacks"][0]
+    h, w = stack.shape[1:]
+    rig = synthetic.default_calibration(h, w, proj)
+    _sync(dev)
+    zero()
+    t0 = time.perf_counter()
+    r = pipeline.reconstruct(stack, ring["calib"], proj.col_bits,
+                             proj.row_bits, device=dev)
+    _sync(dev)
+    card_s = time.perf_counter() - t0
+    launches = read()
+    t0 = time.perf_counter()
+    col, row, mask = oracle.decode_stack_np(stack, proj.col_bits,
+                                            proj.row_bits)
+    pts, flat = oracle.triangulate_np(col, row, mask, *rig,
+                                      proj_width=proj.width,
+                                      proj_height=proj.height)
+    host_s = time.perf_counter() - t0
+    maps = (np.array_equal(r.col_map.cpu().numpy(), col)
+            and np.array_equal(r.row_map.cpu().numpy(), row))
+    valid = r.valid.cpu().numpy().reshape(-1)
+    same_valid = np.array_equal(np.flatnonzero(valid), flat)
+    got = r.points.cpu().numpy().reshape(-1, 3)[flat].astype(np.float64)
+    err = np.abs(got - pts)
+    within = bool(np.all(err <= ORACLE_ATOL + ORACLE_RTOL * np.abs(pts)))
+    print(f"8i (d) config 1's single view at {h}x{w}: card "
+          f"{card_s * 1e3:.1f} ms (launches "
+          f"{ {k: v for k, v in launches.items() if v} }), NumPy oracle "
+          f"{host_s * 1e3:.1f} ms on the host; decode maps equal {maps}, "
+          f"valid pixels equal {same_valid} ({len(flat)}), points within "
+          f"rtol {ORACLE_RTOL} atol {ORACLE_ATOL}: {within} (max |Δ| "
+          f"{err.max():.3e} mm)", flush=True)
+    if not (maps and same_valid and within):
+        fail("8i (d): the card's single view disagrees with the NumPy "
+             "oracle")
+    if launches["decode_maps"] != 1:
+        fail(f"8i (d): decode_maps launched {launches['decode_maps']} "
+             "times, not 1")
+    return launches
+
+
+def parity_http(svc, client) -> dict:
+    """8i (e): in ``svc`` (the serve phase's replica) over HTTP, ``POST
+    /session {"expected_stops": 4}`` answers 200 with a session that holds
+    it; then, under a tenant quota, a create made to fail (the registry's
+    ``create`` raising ``RuntimeError``) answers 400 and leaves the
+    tenant's tokens where they were, and a good create spends one."""
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        TenantQuotas,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.client import (
+        ServeClientError,
+    )
+
+    sid = client.create_session(expected_stops=4)
+    held = svc.sessions.get(sid).session.params.expected_stops
+    client.delete_session(sid)
+    quotas, svc.tenants = svc.tenants, TenantQuotas(1e-3, 8, svc.registry)
+    real = svc.sessions.create
+
+    def made_to_fail(*args, **kw):
+        raise RuntimeError("a create made to fail")
+
+    def tokens():
+        return svc.tenants.stats()["tokens"]["anon"]
+
+    sids = []
+    try:
+        sids.append(client.create_session(expected_stops=4))
+        before = tokens()
+        svc.sessions.create = made_to_fail
+        try:
+            client.create_session(expected_stops=4)
+            status = 200
+        except ServeClientError as e:
+            status = int(str(e).split("(")[1].split(")")[0])
+        finally:
+            svc.sessions.create = real
+        after = tokens()
+        sids.append(client.create_session(expected_stops=4))
+        spent = after - tokens()
+    finally:
+        svc.tenants = quotas
+        for s in sids:
+            client.delete_session(s)
+    out = {"expected_stops_held": held, "failed_status": status,
+           "tokens_before": before, "tokens_after": after,
+           "good_create_spent": spent}
+    print(f"8i (e) POST /session {{'expected_stops': 4}}: 200, held "
+          f"{held}; a create made to fail: {status}, tenant tokens "
+          f"{before:.2f} -> {after:.2f}; a good create spent {spent:.2f}",
+          flush=True)
+    if held != 4 or status != 400 or abs(after - before) >= 0.05 \
+            or abs(spent - 1.0) >= 0.05:
+        fail(f"8i (e): {out}")
+    return out
+
+
+def parity_path(dev, ring, session_t=None) -> dict:
+    """Phase 8i (``--parity-only``: build, the ring's render, this phase,
+    (e) on a replica of its own): (a)-(d) here, each with its seconds;
+    (e) runs in the serve phase's replica. ``session_t`` is the streaming
+    phase's session T; without it (alone) the phase runs its own. Returns
+    each part's launches."""
+    out = {}
+    t = time.perf_counter()
+    out["config8 (a)"] = parity_config8(dev, ring)
+    print(f"8i (a): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    if session_t is None:
+        sess, fin, launches, _ = run_session(dev, ring, "tsdf",
+                                             session_counters())
+        session_t = {"sess": sess, "fin": fin, "launches": launches}
+    out["carving (b)"] = parity_carving(dev, ring, session_t)
+    del session_t
+    print(f"8i (b): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["refused (c)"] = parity_refused(dev)
+    print(f"8i (c): {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    out["single view (d)"] = parity_single_view(dev, ring)
+    print(f"8i (d): {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+def parity_http_alone(dev, ring) -> dict:
+    """8i (e) for ``--parity-only``: a replica of its own at the ring's
+    1080p bucket."""
+    from structured_light_for_3d_model_replication_tpu_torch.serve import (
+        ReconstructionService,
+        ServeConfig,
+        ServeHTTPServer,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.serve.client import (
+        ServeClient,
+    )
+
+    h, w = ring["stacks"].shape[2:]
+    svc = ReconstructionService(ServeConfig(
+        device=str(dev), proj=ring["proj"], buckets=((h, w),),
+        batch_sizes=(1,), workers=1, warmup_sessions=False,
+        content_cache=False)).start()
+    http = ServeHTTPServer(svc, port=0).start()
+    try:
+        return parity_http(svc, ServeClient(
+            f"http://127.0.0.1:{http.port}", timeout_s=300.0, retries=0))
+    finally:
+        http.stop()
+        svc.drain(timeout=60.0)
 
 
 # ---------------------------------------------------------------------------
@@ -4744,7 +5231,7 @@ def serve_session(dev, ring, svc) -> dict:
     which must equal, bit for bit, the in-process ``IncrementalSession``
     with the same stops and params on the card; then a splat-lane session
     whose ``render`` must give a PNG of the asked size. Launches counted
-    for each."""
+    for each. Then phase 8i (e) in the same replica (:func:`parity_http`)."""
     import io
 
     from structured_light_for_3d_model_replication_tpu_torch.io.png import (
@@ -4831,6 +5318,7 @@ def serve_session(dev, ring, svc) -> dict:
             fail(f"serve render: PNG {img.shape} for {size}")
         if out["render_launches"]["composite_cells"] <= 0:
             fail("serve render never launched composite_cells")
+        out["parity_http"] = parity_http(svc, client)
     finally:
         http.stop()
     return out
@@ -5816,10 +6304,12 @@ def view_modes(dev, tmp: str, merged_ply: str, stop_plys: tuple[str, str],
     ring's 15.4 M-face STL took 145.8 s of host numpy to render, PERF.md
     §4). Each PNG must be non-empty; its size is printed. The launches of
     each mode are read from the counters. After the counts,
-    ``--outliers``' keep mask again on the card must equal the same sweep's
-    on the host (the kernel's plain version, then
-    ``statistical_outlier_removal``'s 2σ rule), and the tool's PNG
-    ``viz.render_inliers`` of the host's mask. Returns {mode: launches}."""
+    ``--outliers``' keep mask again on the card must equal the same sweep
+    with the kernel swapped for its plain version (on the card's copy of
+    the points: on the host that sweep took 36-50 s, PERF.md §7), then
+    ``statistical_outlier_removal``'s 2σ rule, and the tool's PNG
+    ``viz.render_inliers`` of the plain sweep's mask. Returns {mode:
+    launches}."""
     import torch
 
     from structured_light_for_3d_model_replication_tpu_torch import viz
@@ -5827,6 +6317,7 @@ def view_modes(dev, tmp: str, merged_ply: str, stop_plys: tuple[str, str],
     from structured_light_for_3d_model_replication_tpu_torch.io import ply
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         brickknn,
+        brickknn_kernel,
         pointcloud,
     )
 
@@ -5846,17 +6337,22 @@ def view_modes(dev, tmp: str, merged_ply: str, stop_plys: tuple[str, str],
         fail("capture (e): view --icp never launched nearest_one")
     pts = ply.read_ply(stop_ply).points
     method = pointcloud._auto_method(len(pts), 20, dev)
-    host_pts = torch.from_numpy(np.asarray(pts, np.float32))
+    card_pts = torch.from_numpy(np.asarray(pts, np.float32)).to(dev)
     t0 = time.perf_counter()
-    # The kernel's plain version on the host (use_pallas=True on a CPU
-    # tensor); "rescue" on a CPU tensor would take the JAX package's dense
-    # brick form, another algorithm at slot overflow.
-    host = brickknn.brick_knn(host_pts, 20, exclude_self=True,
-                              use_pallas=True) if method == "rescue" else \
-        pointcloud._self_knn(host_pts, 20, None, True, method)
-    host_s = time.perf_counter() - t0
-    keep = pointcloud.sor_keep(host[0], host[2], torch.ones(
-        len(pts), dtype=torch.bool)).numpy()
+    # The kernel path with the kernel swapped for its plain version ("rescue"
+    # through brick_knn(use_pallas=True) would otherwise take the dense
+    # brick form, another algorithm at slot overflow).
+    real = brickknn_kernel.brick_knn_cells
+    brickknn_kernel.brick_knn_cells = brickknn_kernel.brick_knn_cells_plain
+    try:
+        plain = brickknn.brick_knn(card_pts, 20, exclude_self=True,
+                                   use_pallas=True) if method == "rescue" \
+            else pointcloud._self_knn(card_pts, 20, None, True, method)
+        keep = pointcloud.sor_keep(plain[0], plain[2], torch.ones(
+            len(pts), dtype=torch.bool, device=dev)).cpu().numpy()
+    finally:
+        brickknn_kernel.brick_knn_cells = real
+    plain_s = time.perf_counter() - t0
     card_keep = view.outlier_mask(pts, dev)
     same_png = np.array_equal(pngs["view --outliers"],
                               viz.render_inliers(pts, keep))
@@ -5864,12 +6360,13 @@ def view_modes(dev, tmp: str, merged_ply: str, stop_plys: tuple[str, str],
     print(f"capture (e): view --outliers on {len(pts)} points: engine "
           f"{method!r}, brick_knn_cells launches "
           f"{tally['view --outliers']['brick_knn_cells']}; rejected "
-          f"{int((~card_keep).sum())} on the card, {int((~keep).sum())} by "
-          f"the same sweep on the host (the kernel's plain version, "
-          f"{host_s:.3f} s): masks equal {same}, the tool's PNG equal to "
-          f"the host mask's render {same_png}", flush=True)
+          f"{int((~card_keep).sum())} by the kernel, {int((~keep).sum())} by "
+          f"the same sweep with its plain version ({plain_s:.3f} s): masks "
+          f"equal {same}, the tool's PNG equal to the plain mask's render "
+          f"{same_png}", flush=True)
     if not same or not same_png:
-        fail("capture (e): view --outliers' mask differs from the host's")
+        fail("capture (e): view --outliers' mask differs from the plain "
+             "version's")
     return tally
 
 
@@ -6230,8 +6727,12 @@ def mc_dense_solve(dev, merged) -> dict:
     """8h (b): ``mesh_from_cloud`` of the ring's merged cloud at depth 8
     (the dense solve) with a ``device_mesh`` over this card, as a sharded
     bucket's postprocess calls it, against the same call without one: the
-    solve runs on a member of the mesh, so vertices and faces must be
-    bit-equal. Returns each solve's seconds and the faces."""
+    solve runs on a member of the mesh, so the grid it hands the host
+    extraction must be bit-equal to the plain call's. That grid is what
+    is checked: the host extraction then runs once (:func:`extract_once`;
+    two took 13-18 s, PERF.md §7), so the second mesh is the first's by
+    construction, not by a check. Returns each solve's seconds and the
+    faces."""
     from structured_light_for_3d_model_replication_tpu_torch.models import (
         meshing,
     )
@@ -6240,28 +6741,26 @@ def mc_dense_solve(dev, merged) -> dict:
     )
 
     out, meshes = {"points": len(merged.points)}, {}
-    for name, over in (("plain", {}), ("device_mesh", dict(
-            device_mesh=pmesh.serve_space_mesh(1, devices=[dev])))):
-        timing = {}
-        meshes[name] = meshing.mesh_from_cloud(
-            merged, depth=MC_DEPTH, quantile_trim=0.0, device=dev,
-            timing=timing, **over)
-        out[name] = {"solve_s": timing["solve_s"],
-                     "extract_s": timing["extract_s"],
-                     "faces": len(meshes[name].faces)}
-    same = (np.array_equal(meshes["plain"].vertices,
-                           meshes["device_mesh"].vertices)
-            and np.array_equal(meshes["plain"].faces,
-                               meshes["device_mesh"].faces))
+    with extract_once("extract", ("chi", "density", "iso", "origin",
+                                  "scale")) as seen:
+        for name, over in (("plain", {}), ("device_mesh", dict(
+                device_mesh=pmesh.serve_space_mesh(1, devices=[dev])))):
+            timing = {}
+            meshes[name] = meshing.mesh_from_cloud(
+                merged, depth=MC_DEPTH, quantile_trim=0.0, device=dev,
+                timing=timing, **over)
+            out[name] = {"solve_s": timing["solve_s"],
+                         "extract_s": timing["extract_s"],
+                         "faces": len(meshes[name].faces)}
+    same = seen["reused"] == 1
     print(f"multi-card (b): {out['points']} points at depth {MC_DEPTH}: "
           f"solve {out['device_mesh']['solve_s']:.3f} s with the "
-          f"device_mesh, {out['plain']['solve_s']:.3f} s without; faces "
-          f"{out['device_mesh']['faces']} / {out['plain']['faces']}, "
-          f"bit-equal {same}; extractions "
-          f"{out['plain']['extract_s'] + out['device_mesh']['extract_s']:.2f}"
-          " s", flush=True)
+          f"device_mesh, {out['plain']['solve_s']:.3f} s without; grid "
+          f"bit-equal to the plain solve's {same}; "
+          f"{out['plain']['faces']} faces from one host extraction of it "
+          f"in {out['plain']['extract_s']:.2f} s", flush=True)
     if not same or not out["plain"]["faces"]:
-        fail("8h (b): the device_mesh solve's mesh differs from the plain "
+        fail("8h (b): the device_mesh solve's grid differs from the plain "
              "solve's")
     return out
 
@@ -6818,6 +7317,13 @@ def main() -> int:
                     help="build, then the fleet phase only (bench config "
                          "10: three replica processes behind the router; "
                          "no result line)")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="build, render the ring, then phase 8i only (the "
+                         "JAX package's surface closed by slice 17: config "
+                         "8 with expected_stops, carving, the "
+                         "preconditioner constants, config 1's single view "
+                         "against the NumPy oracle, the session over HTTP; "
+                         "no result line)")
     ap.add_argument("--diagnose-determinism", action="store_true",
                     help="build, then run the 360° and mesh paths once "
                          "under torch.use_deterministic_algorithms(True, "
@@ -6860,6 +7366,15 @@ def main() -> int:
         return 0
     if args.deep_only:
         deep_kernel_timings(*deep_mesh_path(dev)[:2])
+        return 0
+    if args.parity_only:
+        with clock("render the ring"):
+            ring = files_ring(dev)
+        with clock("parity (8i a-d)"):
+            parity_path(dev, ring)
+        with clock("parity over HTTP (8i e)"):
+            parity_http_alone(dev, ring)
+        clock.report()
         return 0
     if args.files_only:
         files_path(dev, files_ring(dev))
@@ -6931,7 +7446,8 @@ def main() -> int:
         merged = ring["loop"][0]       # the multi-card phase's cloud (8h)
         del fused, ring["loop"]
     with clock("streaming (5)"):
-        launches["tsdf_combine"] = stream_path(dev, ring)["tsdf_combine"]
+        launches_t, session_t = stream_path(dev, ring)
+        launches["tsdf_combine"] = launches_t["tsdf_combine"]
     with clock("splat (5b)"):
         launches["composite_cells"], on_path = splat_path(dev, ring)
         composite = kernels[-1]
@@ -6951,6 +7467,9 @@ def main() -> int:
         kernels[6]["deep_3c"]["launches"] = {
             row: n["brick_knn_cells"] for row, n in deep.items()}
         del band, corners
+    with clock("parity (8i a-d)"):
+        parity = parity_path(dev, ring, session_t)
+        del session_t
     # Last, so every profiler window above runs as it did before these
     # phases were added (the profiler records fewer launches late in a
     # long run).
@@ -6986,9 +7505,10 @@ def main() -> int:
         k["capture"] = {"auto360 (a)": captured["launches"][name]} | {
             f"{mode} (e)": n[name] for mode, n in captured["views"].items()
         } | {part: out["launches"][name] for part, out in capture.items()}
+        k["parity"] = {part: n.get(name, 0) for part, n in parity.items()}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "files",
-             "calibration", "serve", "fleet", "capture")
+             "calibration", "serve", "fleet", "capture", "parity")
     clock.report()
     print(json.dumps({"kernels": [
         {key: k[key] for key in order + tuple(

@@ -292,7 +292,8 @@ def _run_stream(args, stop_dirs, step_deg, labels, health, dev) -> int:
         preview_depth=args.preview_depth,
         preview_every=args.preview_every,
         representation=args.representation,
-        final_depth=args.mesh_depth)
+        final_depth=args.mesh_depth,
+        expected_stops=max(labels) + 1)
     sess = IncrementalSession(cal, col_bits, row_bits, params=params,
                               health=health, device=dev)
     preview_path = args.preview_out or (args.output + ".preview.stl")

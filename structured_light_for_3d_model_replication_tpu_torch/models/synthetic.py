@@ -182,21 +182,22 @@ def pattern_frames(proj: ProjectorConfig) -> np.ndarray:
     return pattern_stack_for(proj, device="cpu").numpy()
 
 
-# ``render_calibration_pose``'s ``pattern_frames`` argument (the JAX
-# package's name) shadows the function above inside it.
+# ``render_scan``'s and ``render_calibration_pose``'s ``pattern_frames``
+# argument (the JAX package's name) shadows the function above in them.
 _protocol_frames = pattern_frames
 
 
 def render_scan(scene: Scene, cam_K, proj_K, R, T, cam_height: int,
                 cam_width: int, proj: ProjectorConfig = ProjectorConfig(),
-                frames: np.ndarray | None = None):
+                pattern_frames: np.ndarray | None = None):
     """Render one turntable stop: (stack (n_frames, H, W) uint8,
-    ground-truth dict)."""
-    if frames is None:
-        frames = pattern_frames(proj)
+    ground-truth dict). ``pattern_frames`` defaults to the protocol's."""
+    if pattern_frames is None:
+        pattern_frames = _protocol_frames(proj)
     shader = FrameShader(scene, cam_K, proj_K, R, T, cam_height, cam_width,
                          proj)
-    return np.stack([shader.shade(f) for f in frames]), shader.ground_truth
+    return (np.stack([shader.shade(f) for f in pattern_frames]),
+            shader.ground_truth)
 
 
 def render_turntable_scans(scene: Scene, n_stops: int,

@@ -1370,9 +1370,11 @@ class ReconstructionService:
                 self.tenants.admit(tenant)
             try:
                 entry = self.sessions.create(options)
-            except JobRejected:
+            except BaseException:
+                # Any failed create (the registry's refusal or a fault
+                # building the session) gives the admission back.
                 if self.tenants is not None:
-                    self.tenants.refund(tenant)  # registry refused
+                    self.tenants.refund(tenant)
                 raise
         except JobRejected:
             self._jobs_total("rejected").inc()

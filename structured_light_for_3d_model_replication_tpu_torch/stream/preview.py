@@ -96,7 +96,8 @@ def make_previewer(params, device=None):
         from ..ops.tsdf import TSDFParams
 
         tparams = TSDFParams(grid_depth=params.tsdf_grid_depth,
-                             max_bricks=params.tsdf_max_bricks)
+                             max_bricks=params.tsdf_max_bricks,
+                             carve_steps=params.tsdf_carve_steps)
         hint = params.tsdf_voxel_scale * params.merge.voxel_size
         if params.representation == "splat":
             from ..splat.model import SplatParams

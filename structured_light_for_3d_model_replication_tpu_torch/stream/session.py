@@ -62,9 +62,13 @@ emit = health_mod.emit
 @dataclasses.dataclass(frozen=True)
 class StreamParams:
     """Streaming knobs on top of the batch merge parameters (the JAX
-    package's fields and defaults, less the free-space carving knob and the
-    per-edge key schedule: each edge's generator is seeded from (seed, edge
-    index), so no schedule is needed)."""
+    package's fields and defaults).
+
+    ``expected_stops`` sizes the JAX package's per-edge PRNG key schedule,
+    and bench config 8 and the HTTP session options set it. Here each
+    edge's generator is seeded from (seed, edge index), so no schedule
+    exists: it is accepted and changes nothing. The schedule's cap,
+    ``max_stops``, which nothing sets, is left out."""
 
     merge: merge_mod.MergeParams = merge_mod.MergeParams()
     method: str = "posegraph"           # finalize pose solve
@@ -98,6 +102,10 @@ class StreamParams:
     tsdf_voxel_scale: float = 2.0       # TSDF voxel = scale × merge voxel
     tsdf_grid_depth: int = 8
     tsdf_max_bricks: int = 4096
+    # Free-space carving of the TSDF previews (ops/tsdf.py
+    # TSDFParams.carve_steps): 0 = the plain integrate; > 0 marches
+    # observed-empty samples toward the camera, erasing stale surface.
+    tsdf_carve_steps: int = 0
     # -- splat appearance tier (representation="splat") -------------------
     splat_cap: int = 8192               # splat slots on the TSDF shell
     splat_fit_iters: int = 40           # Adam steps per lazy scene build
@@ -108,6 +116,8 @@ class StreamParams:
     # -- finalize ---------------------------------------------------------
     final_depth: int = 8
     final_trim: float = 0.0
+    # Stop-count hint of the JAX package's key schedule; no effect here.
+    expected_stops: int | None = None
 
 
 @dataclasses.dataclass
@@ -298,6 +308,12 @@ class IncrementalSession:
     @property
     def finalized(self) -> bool:
         return self._finalized
+
+    def live_poses(self) -> np.ndarray:
+        """Current (fused-stop) global poses, refined incrementally; the
+        authoritative poses come from :meth:`finalize`."""
+        return np.stack(self._poses) if self._poses else \
+            np.zeros((0, 4, 4))
 
     @property
     def previewer(self):

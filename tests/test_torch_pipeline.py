@@ -4,7 +4,9 @@ across by ``calibration_from_numpy``; the port's own ``make_calibration``
 against JAX's.
 
 Tolerances: decode maps and ``valid`` exact; points rtol 1e-5, atol 1e-3 mm
-(float32 sums taken in another order); colours exact. The port's own
+(float32 sums taken in another order); colours exact. The NumPy oracle's
+copy equal to the JAX package's exactly, the port's ``reconstruct`` to it
+within tests/test_triangulate.py's rtol 1e-4, atol 1e-2. The port's own
 calibration: rtol 1e-5, atol 1e-5 (float32 3×3 inverses by another LU).
 """
 
@@ -199,3 +201,94 @@ def test_threaded_frame_shaders_equal_sequential(synth_rig):
     jstack, _ = jsynthetic.render_scan(jsynthetic.Scene(), cam_K, proj_K, R,
                                        T, CAM_H, CAM_W, SMALL_PROJ)
     assert np.array_equal(stack, jstack)
+
+
+def test_oracle_matches_jax(synth_scan, synth_rig, calibs, rng):
+    """The port's copy of the NumPy oracle against the JAX package's on the
+    96×160 rig, function by function, exactly (both are the same float64
+    NumPy); then the port's ``reconstruct`` against it: decode maps equal,
+    points within tests/test_triangulate.py's rtol 1e-4, atol 1e-2."""
+    from structured_light_for_3d_model_replication_tpu.config import (
+        DecodeConfig as JDecodeConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu.models import (
+        oracle as joracle,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.config import (
+        DecodeConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        oracle,
+    )
+
+    stack, _ = synth_scan
+    cam_K, proj_K, R, T = synth_rig
+    p = SMALL_PROJ
+    g = rng.integers(0, 1 << 9, (64, 64)).astype(np.int32)
+    assert np.array_equal(oracle.gray_to_binary_np(g, 9),
+                          joracle.gray_to_binary_np(g, 9))
+    pairs = stack[2:2 + 2 * p.col_bits].reshape(p.col_bits, 2, CAM_H, CAM_W)
+    assert np.array_equal(oracle.decode_bits_np(pairs),
+                          joracle.decode_bits_np(pairs))
+    for mode in ("adaptive", "fixed"):
+        assert np.array_equal(
+            oracle.masks_np(stack[0], stack[1], DecodeConfig(mode=mode)),
+            joracle.masks_np(stack[0], stack[1], JDecodeConfig(mode=mode)))
+    maps = oracle.decode_stack_np(stack, p.col_bits, p.row_bits)
+    for a, b in zip(maps, joracle.decode_stack_np(stack, p.col_bits,
+                                                  p.row_bits)):
+        assert np.array_equal(a, b)
+    rays = oracle.camera_rays_np(cam_K, CAM_H, CAM_W).reshape(-1, 3)
+    for axis, n in (("col", p.width), ("row", p.height)):
+        planes = oracle.projector_planes_np(proj_K, R, T, n, axis)
+        assert np.array_equal(
+            planes, joracle.projector_planes_np(proj_K, R, T, n, axis))
+        idx = rng.integers(0, n, rays.shape[0])
+        for a, b in zip(oracle._plane_t_np(planes[idx], rays, 1e-6),
+                        joracle._plane_t_np(planes[idx], rays, 1e-6)):
+            assert np.array_equal(a, b)
+        for a, b in zip(oracle._est_np(planes, idx, rays, 1e-6),
+                        joracle._est_np(planes, idx, rays, 1e-6)):
+            assert np.array_equal(a, b)
+    for axis in ("col", "row", "both"):
+        got = oracle.triangulate_np(*maps, cam_K, proj_K, R, T, p.width,
+                                    p.height, TriangulationConfig(axis))
+        want = joracle.triangulate_np(*maps, cam_K, proj_K, R, T, p.width,
+                                      p.height, JTriangulationConfig(axis))
+        assert got[0].shape[0] > 1000
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+    # The port's device path against its oracle.
+    r = pipeline.reconstruct(stack, calibs[1], p.col_bits, p.row_bits,
+                             device="cpu")
+    assert np.array_equal(r.col_map.numpy(), maps[0])
+    assert np.array_equal(r.row_map.numpy(), maps[1])
+    pts, flat = oracle.triangulate_np(*maps, cam_K, proj_K, R, T, p.width,
+                                      p.height)
+    got = r.points.numpy().reshape(-1, 3)[flat]
+    assert r.valid.numpy().reshape(-1)[flat].all()
+    np.testing.assert_allclose(got, pts, rtol=1e-4, atol=1e-2)
+
+
+def test_render_scan_takes_pattern_frames(synth_rig):
+    """``render_scan(pattern_frames=)``: a stack of the given frames, bit for
+    bit the JAX package's render of them."""
+    from structured_light_for_3d_model_replication_tpu.models import (
+        synthetic as jsynthetic,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        synthetic,
+    )
+
+    frames = synthetic.pattern_frames(SMALL_PROJ)[[0, 1, 5, 9]]
+    stack, gt = synthetic.render_scan(synthetic.Scene(), *synth_rig, CAM_H,
+                                      CAM_W, SMALL_PROJ,
+                                      pattern_frames=frames)
+    jstack, jgt = jsynthetic.render_scan(jsynthetic.Scene(), *synth_rig,
+                                         CAM_H, CAM_W, SMALL_PROJ,
+                                         pattern_frames=frames)
+    assert stack.shape == (4, CAM_H, CAM_W)
+    assert np.array_equal(stack, jstack)
+    full, _ = synthetic.render_scan(synthetic.Scene(), *synth_rig, CAM_H,
+                                    CAM_W, SMALL_PROJ)
+    assert np.array_equal(full[[0, 1, 5, 9]], stack)

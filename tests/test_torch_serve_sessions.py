@@ -4,7 +4,8 @@ rig of tests/test_torch_stream.py (camera 96×160, projector 256×128, its
 STREAM session settings and its FAST merge settings with fewer RANSAC
 hypotheses, ICP steps and registration points), on the CPU; then a
 splat-lane session's ``GET /session/<id>/render`` and ``render_png``
-finalize on the port's.
+finalize on the port's, and ``POST /session {"expected_stops": 4}`` in
+both with the tenant's refund after a failed create in the port's.
 
 Tolerances (tests/test_torch_stream.py's session contract): every stop
 fused in both, each stop's decision, coverage and fused-model size equal,
@@ -101,7 +102,7 @@ def _carried(h, w, _memo={}):
     return _memo[(h, w)]
 
 
-def _port_service(**stream):
+def _port_service(cfg_kw=None, **stream):
     sp = StreamParams(merge=merge.MergeParams(**FAST),
                       **dict(STREAM, **stream))
     cfg = serve.ServeConfig(
@@ -109,17 +110,18 @@ def _port_service(**stream):
             width=SMALL_PROJ.width, height=SMALL_PROJ.height,
             brightness=SMALL_PROJ.brightness),
         buckets=((CAM_H, CAM_W),), batch_sizes=(1,), linger_ms=1.0,
-        workers=1, stream=sp, warmup_sessions=False, content_cache=False)
+        workers=1, stream=sp, warmup_sessions=False, content_cache=False,
+        **(cfg_kw or {}))
     return serve.ReconstructionService(cfg, calib_provider=_carried).start()
 
 
-def _jax_service():
+def _jax_service(**cfg_kw):
     sp = JStreamParams(merge=jmerge.MergeParams(**FAST),
                        **dict(STREAM, preview_every=0))
     cfg = jserve.ServeConfig(
         proj=JPROJ, buckets=((CAM_H, CAM_W),), batch_sizes=(1,),
         linger_ms=1.0, workers=1, stream=sp, warmup_sessions=False,
-        content_cache=False)
+        content_cache=False, **cfg_kw)
     return jserve.ReconstructionService(cfg).start()
 
 
@@ -166,6 +168,52 @@ def test_session_over_http_matches_jax(stacks, tmp_path):
     assert abs(fin["faces"] - jfin["faces"]) <= 0.01 * jfin["faces"]
     assert len(port[2].faces) == fin["faces"] > 100
     assert np.isfinite(port[2].vertices).all()
+
+
+def _tokens(svc) -> float:
+    return svc.tenants.stats()["tokens"]["anon"]
+
+
+def test_session_options_and_failed_create_refund():
+    """``POST /session {"expected_stops": 4}`` opens a session in both
+    packages (the port once answered 400: its ``StreamParams`` lacked the
+    field), and in the port a create that fails for any reason gives the
+    tenant's admission back (a 400, the token count where it was; at
+    1e-3 tokens/s the bucket refills < 0.05 a token within the test)."""
+    quota = dict(tenant_rate_per_s=1e-3, tenant_burst=8)
+    port = _port_service(quota, preview_every=0)
+    jax_ = _jax_service(**quota)
+    for svc, client_mod in ((port, serve), (jax_, jserve)):
+        http = client_mod.ServeHTTPServer(svc, port=0).start()
+        client = client_mod.ServeClient(f"http://127.0.0.1:{http.port}",
+                                        retries=0)
+        try:
+            sid = client.create_session(expected_stops=4)
+            entry = svc.sessions.get(sid)
+            assert entry.session.params.expected_stops == 4
+            if svc is not port:
+                continue
+            before = _tokens(svc)
+            assert before <= 7.0 + 0.05
+
+            def boom(options=None, **kw):
+                raise RuntimeError("made to fail")
+
+            real = svc.sessions.create
+            svc.sessions.create = boom
+            try:
+                with pytest.raises(serve.client.ServeClientError,
+                                   match="400"):
+                    client.create_session(expected_stops=4)
+            finally:
+                svc.sessions.create = real
+            assert abs(_tokens(svc) - before) < 0.05
+            # A create that succeeds spends its token.
+            assert client.create_session(preview_depth=5)
+            assert _tokens(svc) < before - 0.9
+        finally:
+            http.stop()
+            assert svc.drain(timeout=WAIT_S)
 
 
 def test_splat_session_render_png(stacks):

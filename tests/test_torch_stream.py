@@ -21,6 +21,11 @@ Tolerances:
   ``method="posegraph"`` to 1e-3 (the JAX package's bar,
   tests/test_stream.py): the same per-edge generators, so on the CPU they
   agree to the bit;
+* a 4-stop ``"tsdf"`` session with ``expected_stops=4``: bit-equal to the
+  session without it; with ``tsdf_carve_steps=24`` against the JAX
+  package's same session by outcome (poses within 0.5°, preview faces
+  within 2%), its preview weights never above the uncarved session's and
+  its final mesh the uncarved one's bit for bit;
 * a 4-stop ``representation="splat"`` session at the JAX package's tiny
   splat settings: stride, frame count and splat count equal to the JAX
   session's, intrinsics to 1e-6, and the two renders of one orbit view
@@ -393,6 +398,81 @@ def test_first_preview_and_duplicate_skip(rig):
         sess.add_stop(stacks[1], stop=0)
     with pytest.raises(health.StopQualityError, match="at least 2"):
         sess.finalize()
+
+
+@pytest.fixture(scope="module")
+def tsdf_sessions(rig):
+    """The port's 4-stop ``"tsdf"`` session plain, with free-space carving
+    (``tsdf_carve_steps=24``) and with ``expected_stops=4``: (session,
+    per-stop preview faces, finalize result) each."""
+    stacks, calib, _ = rig
+    out = {}
+    for name, extra in (("plain", {}), ("carved", {"tsdf_carve_steps": 24}),
+                        ("expected", {"expected_stops": 4})):
+        sp = StreamParams(merge=merge.MergeParams(**FAST),
+                          representation="tsdf", **STREAM, **extra)
+        sess = IncrementalSession(calib, SMALL_PROJ.col_bits,
+                                  SMALL_PROJ.row_bits, params=sp,
+                                  device="cpu")
+        faces = []
+        for k in range(4):
+            assert sess.add_stop(stacks[k]).fused
+            faces.append(len(sess.preview.faces))
+        out[name] = (sess, faces, sess.finalize(mesh=True))
+    return out
+
+
+def test_expected_stops_changes_nothing(tsdf_sessions):
+    """The JAX package's key-schedule hint: here each edge seeds its own
+    generator, so a session with ``expected_stops=4`` is the session
+    without it, bit for bit (poses, live poses, cloud, previews, mesh)."""
+    a, fa_, fin_a = tsdf_sessions["plain"]
+    b, fb_, fin_b = tsdf_sessions["expected"]
+    assert fa_ == fb_
+    assert np.array_equal(a.live_poses(), b.live_poses())
+    assert a.live_poses().shape == (4, 4, 4)
+    assert np.array_equal(fin_a.poses, fin_b.poses)
+    assert np.array_equal(fin_a.cloud.points, fin_b.cloud.points)
+    assert np.array_equal(fin_a.cloud.colors, fin_b.cloud.colors)
+    assert np.array_equal(fin_a.mesh.vertices, fin_b.mesh.vertices)
+    assert np.array_equal(fin_a.mesh.faces, fin_b.mesh.faces)
+
+
+def test_carved_tsdf_session_matches_jax(rig, tsdf_sessions):
+    """``tsdf_carve_steps=24`` against the JAX package's same 4-stop
+    session, by outcome as test_session_lane (poses within 0.5°, the RANSAC
+    streams differ), plus: carving reaches the previews only — it decays
+    or resets preview voxels (weights never grow) and the final mesh,
+    re-fused from the merged cloud, is the uncarved session's bit for bit
+    — and the carved previews' face counts within 2% of the JAX
+    session's."""
+    stacks, _, mats = rig
+    plain, _, fin_p = tsdf_sessions["plain"]
+    carved, faces, fin_c = tsdf_sessions["carved"]
+    jcal = jtri.make_calibration(*mats, CAM_H, CAM_W, SMALL_PROJ.width,
+                                 SMALL_PROJ.height)
+    jsp = JStreamParams(merge=jmerge.MergeParams(**FAST),
+                        representation="tsdf", tsdf_carve_steps=24, **STREAM)
+    jsess = JSession(jcal, SMALL_PROJ.col_bits, SMALL_PROJ.row_bits,
+                     params=jsp)
+    jfaces = []
+    for k in range(4):
+        assert jsess.add_stop(stacks[k]).fused
+        jfaces.append(len(jsess.preview.faces))
+    jfin = jsess.finalize(mesh=True)
+    for i in range(4):
+        a = _angle(fin_c.poses[i][:3, :3])
+        ja = _angle(jfin.poses[i][:3, :3])
+        assert abs(a - ja) <= 0.5, (i, a, ja)
+    for f, jf in zip(faces, jfaces):
+        assert f > 0 and abs(f - jf) <= 0.02 * jf, (faces, jfaces)
+    assert carved.preview.vertex_colors is not None
+    w_plain = plain.previewer.volume.state.weight
+    w_carved = carved.previewer.volume.state.weight
+    assert bool((w_carved <= w_plain).all())
+    assert int(((w_plain > 0) & (w_carved == 0)).sum()) > 0
+    assert np.array_equal(fin_c.mesh.faces, fin_p.mesh.faces)
+    assert np.array_equal(fin_c.mesh.vertices, fin_p.mesh.vertices)
 
 
 def test_session_parameter_checks(rig):
