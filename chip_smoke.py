@@ -223,10 +223,17 @@ Phases, in order; any failure exits non-zero before the result line:
    stepped in turn, at span widths 2, 4 and 8 (540, 270, 135 rows): each
    result bit-equal to the unsharded ``reconstruct_batch``, one
    ``decode_maps`` launch a member; (b) ``mesh_from_cloud`` of the ring's
-   merged cloud at depth 8 (the dense solve) with a ``device_mesh`` over
-   this card, its grid bit-equal to the call without one (the extraction
-   then runs once) and so its vertices and faces, each solve's seconds;
-   (c)
+   merged cloud at depth 8 (the dense solve) without a ``device_mesh``,
+   with one of this card (its grid bit-equal to the plain grid), and with
+   2 and 4 members stepped in turn on this card, a slab of grid planes
+   each (``ops/poisson.Slabs``: halo planes, sums folded in member order):
+   CG iterations within 1 of the plain solve's, max |Δχ| within
+   5e-5·max|χ| and the density (the splat's rows) bit for bit, the
+   4-member solve twice bit for bit and its host
+   extraction within 0.5% of the plain mesh's faces, each solve's seconds
+   and the halo bytes an iteration, and the 2 and 4 members' divergence
+   and Laplacian rows of random 256³ fields bit-equal to the whole
+   grid's; (c)
    ``ReconstructionService`` with ``devices=1`` and with
    ``shard_min_pixels`` beside the plain service on two 1080p stops:
    lane-pinned on one card, every PLY byte-equal; (d)
@@ -240,8 +247,13 @@ Phases, in order; any failure exits non-zero before the result line:
    byte-equal to a never-moved one's) and 7c2's 1080p span over the
    cards, two stops a batch (190.8 MB split by rows over the members),
    with the first card convicted by the probe, the span re-formed and
-   the card revived; a ``{"multi_card": …}`` line says
-   what ran and what one card could not run;
+   the card revived (its STL job solving on one card of the span), and
+   with two cards or more the slab rows of (b) over 2 and 4 cards and the
+   dense solve over them against the solve on the first alone, the median
+   of three runs of each: of (b) and of 7c2's STL cloud at depths 6 and 7
+   (the serve tier's), with each card's busy seconds from the profiler;
+   a ``{"multi_card": …}`` line
+   says what ran and what one card could not run;
 8i. the JAX package's surface that slice 17 closed (``--parity-only``:
    build, the ring's render, this phase, (e) on a replica of its own),
    after the deep phase, each part with its seconds: (a) bench config 8
@@ -2373,44 +2385,100 @@ def torch_equal_bits(a, b) -> bool:
 
 
 @contextlib.contextmanager
-def extract_once(name: str, fields: tuple[str, ...]):
-    """While open, ``ops/marching.<name>`` (the extraction a mesh call ends
-    in) runs once a distinct grid: a later call on a grid whose ``fields``
-    are bit-equal to the first call's gets the first call's mesh, so a
-    check built on it holds the grids, not the meshes. The yielded dict
-    counts such calls under ``"reused"`` and the others under
-    ``"extracted"``."""
+def dense_solves(extract):
+    """While open, every dense ``ops/poisson.reconstruct`` call (the solve
+    ``mesh_from_cloud`` makes at depth ≤ 8) appends (grid, CG iterations)
+    to the yielded list, and the host extraction after solve ``i``
+    (``ops/marching.extract``) runs only when ``extract(i)`` holds; the
+    others return an empty mesh, so a check built on them holds the
+    grids."""
+    from structured_light_for_3d_model_replication_tpu_torch.io.stl import (
+        TriangleMesh,
+    )
     from structured_light_for_3d_model_replication_tpu_torch.ops import (
         marching,
+        poisson,
     )
 
-    real = getattr(marching, name)
-    seen = {"extracted": 0, "reused": 0}
-    first = {}
+    real_solve, real_extract = poisson.reconstruct, marching.extract
+    solves = []
 
-    def same(a, b) -> bool:
-        a, b = a.cpu(), b.cpu()
-        if a.dtype != b.dtype or a.shape != b.shape:
-            return False
-        return torch_equal_bits(a, b) if a.is_floating_point() \
-            else bool((a == b).all())
+    def solve(*args, **kw):
+        grid, iters = real_solve(*args, **dict(kw, return_iters=True))
+        solves.append((grid, iters))
+        return grid
 
-    def once(grid, *args, **kw):
-        if first and all(same(getattr(grid, f), getattr(first["grid"], f))
-                         for f in fields):
-            seen["reused"] += 1
-            return first["mesh"]
-        mesh = real(grid, *args, **kw)
-        seen["extracted"] += 1
-        if not first:
-            first.update(grid=grid, mesh=mesh)
-        return mesh
+    def maybe_extract(grid, *args, **kw):
+        if extract(len(solves) - 1):
+            return real_extract(grid, *args, **kw)
+        return TriangleMesh(vertices=np.zeros((0, 3), np.float32),
+                            faces=np.zeros((0, 3), np.int32))
 
-    setattr(marching, name, once)
+    poisson.reconstruct, marching.extract = solve, maybe_extract
     try:
-        yield seen
+        yield solves
     finally:
-        setattr(marching, name, real)
+        poisson.reconstruct, marching.extract = real_solve, real_extract
+
+
+def grids_bit_equal(a, b) -> bool:
+    """Two ``PoissonGrid``s equal field by field, bit for bit."""
+    return all(torch_equal_bits(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def slab_gap(grid, iters, ref, ref_iters) -> dict:
+    """A slab solve against the plain one: iterations, max |Δχ| and |Δiso|
+    over max|χ|, and whether the density (the splat's rows) is bit-equal."""
+    scale = float(ref.chi.abs().max())
+    return {"iters": iters, "plain_iters": ref_iters,
+            "chi": float((grid.chi - ref.chi.to(grid.chi.device)).abs().max())
+            / scale,
+            "iso": abs(float(grid.iso) - float(ref.iso)) / scale,
+            "density_bit_equal": torch_equal_bits(grid.density.cpu(),
+                                                  ref.density.cpu())}
+
+
+def slab_rows(members, resolution: int, dev) -> dict:
+    """The slab divergence and Laplacian over ``members`` (a mesh's space
+    members, in order: cards, or one card listed k times) of seeded random
+    fields on ``dev`` at ``resolution``, gathered on ``dev``, against the
+    whole-grid operators: bit for bit, the two faces of the first axis (the
+    only planes where the stencil clamps) included, and the halo planes
+    copied between the members. Returns each operator's verdict and the
+    seconds of the check; fails if a row differs."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson,
+    )
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(members))
+    R = resolution
+    fields = {"divergence": torch.randn((R, R, R, 3), device=dev,
+                                        generator=g),
+              "laplacian": torch.randn((R, R, R), device=dev, generator=g)}
+    slabs = poisson.Slabs.cut(members, R)
+    out = {}
+    for name, field in fields.items():
+        want = getattr(poisson, name)(field)
+        got = getattr(slabs.split(field), name)().gather(dev)
+        out[name] = torch_equal_bits(got, want)
+        del want, got
+    _sync(dev)
+    out["seconds"] = time.perf_counter() - t0
+    if not (out["divergence"] and out["laplacian"]):
+        fail(f"the slab rows over {len(members)} members differ from the "
+             f"whole grid's at R = {R}: {out}")
+    return out
+
+
+def slab_off(gap) -> bool:
+    """A slab solve off the plain one: iterations beyond 1, χ beyond
+    ``MC_CHI_TOL``·max|χ|, or the density not bit for bit."""
+    return abs(gap["iters"] - gap["plain_iters"]) > 1 \
+        or not gap["chi"] <= MC_CHI_TOL or not gap["density_bit_equal"]
 
 
 # Op classes that add floats as atomics on the card, or whose order
@@ -6653,6 +6721,11 @@ def lint_native_path(dev, outputs) -> dict:
 MC_WIDTHS = (2, 4, 8)          # span widths of the 1080p member steps
 MC_DEPTH = 8                   # the dense solve's depth (256³)
 MC_FACES_TOL = 0.02            # tests/test_serve_lanes.py:320
+MC_SOLVE_MEMBERS = (2, 4)      # the dense solve's slab members
+MC_CHI_TOL = 5e-5              # a slab solve's max |dchi|, x max|chi|
+MC_SLAB_FACES_TOL = 0.005      # its mesh's faces against the plain mesh's
+MC_SOLVE_REPS = 3              # timed runs of each layout over the cards
+MC_STL_DEPTHS = (6, 7)         # 7c2's mesh_depth, ServeConfig's default
 MC_PROJ = (64, 32)             # the host lanes' tiny rig (projector)
 MC_LANE_CAM = (24, 40)         # its lane-pinned bucket
 MC_SPAN_CAM = (32, 48)         # its sharded bucket (rows split by 2, 4, 8)
@@ -6725,44 +6798,193 @@ def mc_member_steps(dev, stacks, calib, proj) -> dict:
 
 def mc_dense_solve(dev, merged) -> dict:
     """8h (b): ``mesh_from_cloud`` of the ring's merged cloud at depth 8
-    (the dense solve) with a ``device_mesh`` over this card, as a sharded
-    bucket's postprocess calls it, against the same call without one: the
-    solve runs on a member of the mesh, so the grid it hands the host
-    extraction must be bit-equal to the plain call's. That grid is what
-    is checked: the host extraction then runs once (:func:`extract_once`;
-    two took 13-18 s, PERF.md §7), so the second mesh is the first's by
-    construction, not by a check. Returns each solve's seconds and the
-    faces."""
+    (the dense solve), as a sharded bucket's postprocess calls it, without
+    a ``device_mesh``, with one member (this card) and with 2 and 4
+    members stepped in turn on this card (a mesh listing it 2 and 4
+    times), the 4-member call twice. The one-member grid is the plain
+    grid bit for bit; each slab grid is held to the plain one (CG
+    iterations within 1, max |Δχ| ≤ ``MC_CHI_TOL``·max|χ|, the density
+    bit for bit), the repeat to the first 4-member grid bit for bit. The
+    host extraction runs twice: the plain grid's mesh and the 4-member
+    grid's, whose faces must be within ``MC_SLAB_FACES_TOL`` of the plain
+    mesh's (an extraction takes 7-9 s, PERF.md §7). Returns each solve's seconds, iterations and
+    gaps, the faces and the halo bytes an iteration."""
     from structured_light_for_3d_model_replication_tpu_torch.models import (
         meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson,
     )
     from structured_light_for_3d_model_replication_tpu_torch.parallel import (
         mesh as pmesh,
     )
 
-    out, meshes = {"points": len(merged.points)}, {}
-    with extract_once("extract", ("chi", "density", "iso", "origin",
-                                  "scale")) as seen:
-        for name, over in (("plain", {}), ("device_mesh", dict(
-                device_mesh=pmesh.serve_space_mesh(1, devices=[dev])))):
+    runs = [("plain", None), ("1 member", pmesh.serve_space_mesh(
+        1, devices=[dev]))] + [(f"{k} members", pmesh.Mesh(((dev,) * k,)))
+                                for k in MC_SOLVE_MEMBERS] + [
+        (f"{MC_SOLVE_MEMBERS[-1]} members again",
+         pmesh.Mesh(((dev,) * MC_SOLVE_MEMBERS[-1],)))]
+    out, faces = {"points": len(merged.points)}, {}
+    extracted = {0, 1 + len(MC_SOLVE_MEMBERS)}
+    with dense_solves(lambda i: i in extracted) as solves:
+        for name, mesh in runs:
             timing = {}
-            meshes[name] = meshing.mesh_from_cloud(
+            got = meshing.mesh_from_cloud(
                 merged, depth=MC_DEPTH, quantile_trim=0.0, device=dev,
-                timing=timing, **over)
+                timing=timing, device_mesh=mesh)
+            faces[name] = len(got.faces)
             out[name] = {"solve_s": timing["solve_s"],
-                         "extract_s": timing["extract_s"],
-                         "faces": len(meshes[name].faces)}
-    same = seen["reused"] == 1
+                         "iters": solves[-1][1]}
+    (ref, ref_iters), (one, _) = solves[0], solves[1]
+    same_one = grids_bit_equal(one, ref)
     print(f"multi-card (b): {out['points']} points at depth {MC_DEPTH}: "
-          f"solve {out['device_mesh']['solve_s']:.3f} s with the "
-          f"device_mesh, {out['plain']['solve_s']:.3f} s without; grid "
-          f"bit-equal to the plain solve's {same}; "
-          f"{out['plain']['faces']} faces from one host extraction of it "
-          f"in {out['plain']['extract_s']:.2f} s", flush=True)
-    if not same or not out["plain"]["faces"]:
-        fail("8h (b): the device_mesh solve's grid differs from the plain "
+          f"plain solve {out['plain']['solve_s']:.3f} s, {ref_iters} CG "
+          f"iterations, {faces['plain']} faces; one member "
+          f"{out['1 member']['solve_s']:.3f} s, grid bit-equal to the "
+          f"plain grid {same_one}", flush=True)
+    if not same_one or not faces["plain"]:
+        fail("8h (b): the one-member solve's grid differs from the plain "
              "solve's")
+    R = 2 ** MC_DEPTH
+    for j, k in enumerate(MC_SOLVE_MEMBERS):
+        name = f"{k} members"
+        rows = slab_rows([dev] * k, R, dev)
+        print(f"multi-card (b): {k} members' slab divergence and Laplacian "
+              f"rows of random fields at R = {R} bit-equal to the whole "
+              f"grid's: {rows['divergence']} / {rows['laplacian']} "
+              f"({rows['seconds']:.2f} s)", flush=True)
+        gap = slab_gap(*solves[2 + j], ref, ref_iters)
+        out[name].update(gap, rows_bit_equal=True,
+                         halo_bytes=poisson.Slabs.cut([dev] * k,
+                                                      R).halo_bytes())
+        print(f"multi-card (b): {k} members stepped in turn on this card: "
+              f"{out[name]['solve_s']:.3f} s, {gap['iters']} iterations "
+              f"(plain {ref_iters}), max |dchi| {gap['chi']:.3e} and |diso| "
+              f"{gap['iso']:.3e} of max|chi|, density bit-equal "
+              f"{gap['density_bit_equal']}, halo "
+              f"{out[name]['halo_bytes']:,} bytes an iteration (one card: "
+              "no copy)", flush=True)
+        if slab_off(gap):
+            fail(f"8h (b): the {k}-member solve is off the plain solve: "
+                 f"{gap}")
+    k = MC_SOLVE_MEMBERS[-1]
+    again = grids_bit_equal(solves[-1][0], solves[-2][0]) \
+        and solves[-1][1] == solves[-2][1]
+    n, n_ref = faces[f"{k} members"], faces["plain"]
+    out.update(faces=n, plain_faces=n_ref, repeat_bit_equal=again)
+    print(f"multi-card (b): the {k}-member solve again in "
+          f"{out[f'{k} members again']['solve_s']:.3f} s, bit-equal {again};"
+          f" its mesh {n} faces against the plain mesh's {n_ref}",
+          flush=True)
+    if not again:
+        fail(f"8h (b): the {k}-member solve does not repeat bit for bit")
+    if abs(n - n_ref) > MC_SLAB_FACES_TOL * n_ref:
+        fail(f"8h (b): the {k}-member mesh has {n} faces, the plain {n_ref}")
     return out
+
+
+def mc_slab_cards(devices, cases) -> dict:
+    """The dense solve over 2 and 4 of ``devices`` (as far as they go), a
+    slab of planes each, against the solve on the first alone, for each
+    case ``(label, cloud, depth)``: CG iterations within 1, max |Δχ| ≤
+    ``MC_CHI_TOL``·max|χ|, the density bit for bit (the grids are
+    checked; no extraction). Each layout is timed ``MC_SOLVE_REPS`` times
+    (the median is its number; the slab runs bit-equal to each other),
+    then run once more on cards under the profiler for each card's busy
+    seconds (kernels and copies by device). Before the solves, the
+    members' divergence and Laplacian rows of random fields at the
+    largest case's grid against the whole grid's, bit for bit
+    (:func:`slab_rows`), the halos copied between the cards."""
+    import statistics
+
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    def solve(cloud, depth, mesh):
+        timing = {}
+        meshing.mesh_from_cloud(cloud, depth=depth, quantile_trim=0.0,
+                                device=devices[0], timing=timing,
+                                device_mesh=mesh)
+        return timing["solve_s"]
+
+    widths = [k for k in MC_SOLVE_MEMBERS if k <= len(devices)]
+    R = 2 ** max(depth for _, _, depth in cases)
+    rows = {"rows": {k: slab_rows(devices[:k], R, devices[0])
+                     for k in widths}}
+    print("multi-card slab rows: divergence / Laplacian of random fields "
+          f"at R = {R} over " + ", ".join(
+              f"{k} cards {r['divergence']} / {r['laplacian']}"
+              for k, r in rows["rows"].items()), flush=True)
+    for label, cloud, depth in cases:
+        got = rows[f"{label} depth {depth}"] = {}
+        with dense_solves(lambda i: False) as solves:
+            one = [solve(cloud, depth, None) for _ in range(MC_SOLVE_REPS)]
+            one_s = statistics.median(one)
+            ref, ref_iters = solves[0]
+            for k in widths:
+                mesh = pmesh.serve_space_mesh(k, devices=devices[:k])
+                n0 = len(solves)
+                secs = [solve(cloud, depth, mesh)
+                        for _ in range(MC_SOLVE_REPS)]
+                busy, _ = card_busy_s(lambda: solve(cloud, depth, mesh),
+                                      devices[:k])
+                gap = slab_gap(*solves[n0], ref, ref_iters)
+                again = all(grids_bit_equal(g, solves[n0][0])
+                            and it == solves[n0][1]
+                            for g, it in solves[n0 + 1:])
+                got[k] = dict(gap, solve_s=statistics.median(secs),
+                              runs_s=secs, one_card_s=one_s,
+                              one_card_runs_s=one, busy_s=busy,
+                              repeat_bit_equal=again,
+                              halo_bytes=poisson.Slabs.cut(
+                                  devices[:k], 2 ** depth).halo_bytes())
+                print(f"multi-card slab solve: {k} cards "
+                      f"({'+'.join(pmesh.device_label(d) for d in devices[:k])}"
+                      f"), {label}, {len(cloud.points)} points at depth "
+                      f"{depth}: median {got[k]['solve_s']:.4f} s of "
+                      f"{[round(t, 4) for t in secs]} (one card median "
+                      f"{one_s:.4f} s of {[round(t, 4) for t in one]}), "
+                      f"{gap['iters']} iterations (one card {ref_iters}), "
+                      f"max |dchi| {gap['chi']:.3e} and |diso| "
+                      f"{gap['iso']:.3e} of max|chi|, density bit-equal "
+                      f"{gap['density_bit_equal']}, halo "
+                      f"{got[k]['halo_bytes']:,} bytes an iteration, "
+                      f"repeats bit-equal {again}; busy seconds by card "
+                      f"{busy}", flush=True)
+                if slab_off(gap) or not again:
+                    fail(f"slab solve over {k} cards, {label} at depth "
+                         f"{depth}: off the one-card solve: {gap}")
+    return rows
+
+
+def card_busy_s(fn, devices):
+    """``fn()`` under ``torch.profiler`` on cards: (each card's seconds of
+    recorded kernels and copies by label, ``fn``'s result). On host lanes
+    (no card) the busy seconds are None: not measured."""
+    import torch
+
+    if devices[0].type != "cuda":
+        return None, fn()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            label = f"cuda:{e.device_index}"
+            busy[label] = busy.get(label, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e6
+    return busy, result
 
 
 def mc_one_card_services(dev, stacks, calib, proj) -> dict:
@@ -6869,9 +7091,13 @@ def mc_world_of_one() -> float:
 
 def mc_rig() -> dict:
     """The host lanes' tiny rig (the tests' shapes): config name →
-    (projector, stack)."""
+    (projector, stack), and for the slab solve (cloud, depth): a 4001-point
+    sphere at depth 5."""
     from structured_light_for_3d_model_replication_tpu_torch.config import (
         ProjectorConfig,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
+        PointCloud,
     )
     from structured_light_for_3d_model_replication_tpu_torch.models import (
         synthetic,
@@ -6883,8 +7109,15 @@ def mc_rig() -> dict:
         cam = synthetic.default_calibration(h, w, proj)
         stacks.append(synthetic.render_scan(synthetic.Scene(), *cam, h, w,
                                             proj)[0])
+    rng = np.random.default_rng(0)
+    u = rng.normal(size=(4001, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    sphere = PointCloud(points=(u * 50.0 + [0.0, 0.0, 500.0]).astype(
+        np.float32))
     return {"7b": (proj, stacks[0]), "7c": (proj, stacks[0]),
-            "7c2": (proj, stacks[1])}
+            "7c2": (proj, stacks[1]),
+            "slab solve": [("the 4001-point sphere", sphere, 5)],
+            "stl depths": (5,)}
 
 
 def mc_bench_rig(stop=None) -> dict:
@@ -7152,8 +7385,8 @@ def mc_span_7c2(devices, proj, stack) -> dict:
             stack + np.uint8(9), svc.calib_provider(h, w), proj.col_bits,
             proj.row_bits, device=devices[width - 1])))
         sharded = svc.registry.counter("serve_sharded_batches_total").value
-        faces, ref_faces = mc_sharded_stl(svc, stack + np.uint8(11),
-                                          devices[0])
+        faces, ref_faces, stl_cloud = mc_sharded_stl(
+            svc, stack + np.uint8(11), devices[0])
     finally:
         svc.abort()
     print(f"multi-card 7c2: span {'+'.join(full)}, batches of "
@@ -7163,8 +7396,8 @@ def mc_span_7c2(devices, proj, stack) -> dict:
           f"re-formed to {'+'.join(reformed) or 'off'}, {first} revived; 6 "
           f"jobs done, none lost ({sharded} sharded batches), {builds} "
           "build(s) on the re-formed and the revived spans; an STL job's "
-          f"Poisson solve over the span: {faces} faces against {ref_faces} "
-          "from one device", flush=True)
+          f"Poisson solve on a card of the span: {faces} faces against "
+          f"{ref_faces} from one device", flush=True)
     if builds:
         fail(f"7c2: {builds} program build(s) after a span change")
     print(f"multi-card 7c2: the {width}-card span's PLY byte-equal to one "
@@ -7172,14 +7405,15 @@ def mc_span_7c2(devices, proj, stack) -> dict:
     if got != want:
         fail("7c2: the sharded PLY differs from one card's")
     return {"span": list(full), "convicted": first, "probes": probes,
-            "reformed": list(reformed), "faces": faces}
+            "reformed": list(reformed), "faces": faces,
+            "stl_cloud": stl_cloud}
 
 
-def mc_sharded_stl(svc, stack, device) -> tuple[int, int]:
-    """A sharded bucket's STL job: its dense Poisson solve runs on a card
-    of the span (``mesh_from_cloud(device_mesh=…)``). Its faces must be
-    within 2% of the same cloud meshed on one device (the cloud from the
-    same stack's PLY job)."""
+def mc_sharded_stl(svc, stack, device) -> tuple:
+    """A sharded bucket's STL job: its dense Poisson solve runs whole on a
+    card of the span (``serve/worker.py``). Its faces must be within 2% of
+    the same cloud meshed on one device (the cloud from the same stack's
+    PLY job). Returns the faces, the one-device mesh's and the cloud."""
     import io
 
     from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
@@ -7194,29 +7428,38 @@ def mc_sharded_stl(svc, stack, device) -> tuple[int, int]:
         if not j.wait(300.0) or j.status != "done":
             fail(f"7c2: a sharded {j.status_dict()}")
     faces = jobs[0].result_meta["faces"]
+    cloud = read_ply(io.BytesIO(jobs[1].result_bytes))
     ref = meshing.mesh_from_cloud(
-        read_ply(io.BytesIO(jobs[1].result_bytes)), mode="watertight",
-        depth=svc.config.mesh_depth, quantile_trim=0.0, device=device)
+        cloud, mode="watertight", depth=svc.config.mesh_depth,
+        quantile_trim=0.0, device=device)
     n_ref = len(ref.faces)
     if not faces or abs(faces - n_ref) > MC_FACES_TOL * n_ref:
         fail(f"7c2: the sharded STL has {faces} faces, one device {n_ref}")
-    return faces, n_ref
+    return faces, n_ref, cloud
 
 
 def multi_card_runs(devices, rig=None) -> dict:
     """What only several devices can run: bench configs 7b (above one
-    lane), 7c and 7c2 over ``devices`` (the cards; host lanes
-    ``torch.device("cpu", k)`` in the CPU tests), each on its ``rig``
-    entry (:func:`mc_bench_rig` on the cards; None: the host lanes' tiny
-    :func:`mc_rig`). Returns what ran and what did not."""
+    lane), 7c and 7c2 and the dense solve over 2 and 4 members' slabs
+    over ``devices`` (the cards; host lanes ``torch.device("cpu", k)`` in
+    the CPU tests), each on its ``rig`` entry (:func:`mc_bench_rig` and
+    the ring's merged cloud at depth 8 on the cards; None: the host
+    lanes' tiny :func:`mc_rig`); the slab solve also on the cloud of
+    7c2's STL job at ``rig["stl depths"]`` (the serve tier's depths).
+    Returns what ran and what did not."""
     rig = mc_rig() if rig is None else rig
     ran = {"7b": mc_sweep_7b(devices, *rig["7b"])}
     not_run = []
     if len(devices) >= 2:
         ran["7c"] = mc_failover_7c(devices, *rig["7c"])
         ran["7c2"] = mc_span_7c2(devices, *rig["7c2"])
+        ran["slab solve"] = mc_slab_cards(devices, rig["slab solve"] + [
+            ("7c2's STL cloud", ran["7c2"]["stl_cloud"], d)
+            for d in rig["stl depths"]])
     else:
         not_run = ["7b above 1 lane", "7c", "7c2"]
+    not_run += [f"slab solve over {k} cards" for k in MC_SOLVE_MEMBERS
+                if k > len(devices)]
     return {"cards": len(devices), "ran": sorted(ran), "not_run": not_run,
             "runs": ran}
 
@@ -7224,12 +7467,12 @@ def multi_card_runs(devices, rig=None) -> dict:
 def multi_card_path(dev, stacks, calib, proj, merged) -> dict:
     """Phase 8h: several cards and the sharded tier. On any machine, on
     ``dev``: (a) the 1080p member steps at span widths 2, 4, 8; (b) the
-    depth-8 dense solve with a ``device_mesh``; (c) the one-card
-    services; (d) the nccl world of one. Then the runs that need several
-    cards, at the bench's shapes, on every card the machine has (with
-    one, only 7b's single lane), and a ``multi_card`` line saying what
-    ran. Returns ``decode_maps``'s launches by part and each part's
-    seconds."""
+    depth-8 dense solve with a ``device_mesh`` of 1, 2 and 4 members;
+    (c) the one-card services; (d) the nccl world of one. Then the runs
+    that need several cards, at the bench's shapes, on every card the
+    machine has (with one, only 7b's single lane), and a ``multi_card``
+    line saying what ran. Returns ``decode_maps``'s launches by part and
+    each part's seconds."""
     import torch
 
     secs = {}
@@ -7246,7 +7489,10 @@ def multi_card_path(dev, stacks, calib, proj, merged) -> dict:
     secs["nccl world of one (d)"] = mc_world_of_one()
     t0 = time.perf_counter()
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    runs = multi_card_runs(cards, mc_bench_rig(stacks[0]))
+    rig = mc_bench_rig(stacks[0])
+    rig["slab solve"] = [("the ring's merged cloud", merged, MC_DEPTH)]
+    rig["stl depths"] = MC_STL_DEPTHS
+    runs = multi_card_runs(cards, rig)
     secs["multi-card runs"] = time.perf_counter() - t0
     print(json.dumps({"multi_card": {
         "cards": runs["cards"], "ran": runs["ran"],

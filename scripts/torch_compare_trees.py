@@ -3,7 +3,7 @@
 in turns.
 
     python3 scripts/torch_compare_trees.py OLD NEW [--runs 2]
-        [--paths ring,splat,cleanup,fused,poisson1m]
+        [--paths ring,splat,cleanup,fused,poisson1m,dense]
 
 OLD and NEW are roots of two checkouts of this repository (a parent
 commit unpacked with ``git archive`` into a git-ignored directory, and
@@ -62,6 +62,12 @@ launches) and as a call with its wrapper (CUDA events):
   ``coarse_s``, ``fine_cg_s``, ``iso_s``), fine iterations and blocks;
   digests of the normals, of the band (block coordinates, validity,
   neighbour table) and of χ.
+* ``dense``: the one-card dense solve (``poisson.reconstruct``) on a
+  seeded cylinder with estimated normals: the streaming preview's (8,192
+  points, depth 6, ``cg_iters=60``) cold and warm-started from the
+  preview of every other point, and depth 7 and 8 cold solves of 2¹⁶
+  points (``cg_iters=300``), once to warm up and ``--runs`` times timed:
+  each solve's wall and iterations; digests of each χ.
 
 Then per kernel and stage the mean of each tree's turns and their ratio,
 and the card's name and power limit. Exits 1 if a turn fails or the two
@@ -102,7 +108,7 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-PATHS = ("ring", "splat", "cleanup", "fused", "poisson1m")
+PATHS = ("ring", "splat", "cleanup", "fused", "poisson1m", "dense")
 
 
 def measure(runs: int, dev, paths=PATHS) -> dict:
@@ -180,6 +186,8 @@ def measure(runs: int, dev, paths=PATHS) -> dict:
         cleanup_path(out, runs, dev, cs, proj, timed)
     if "poisson1m" in paths:
         poisson1m_path(out, runs, dev, cs)
+    if "dense" in paths:
+        dense_path(out, runs, dev, cs)
     return out
 
 
@@ -461,6 +469,48 @@ def poisson1m_path(out, runs, dev, cs) -> None:
                "cg_iters": stats["cg_iters_used"], "blocks": nb}
         out["runs"]["poisson1m"].append(row)
         print(f"poisson1m run {run}: {json.dumps(row)}", flush=True)
+
+
+def dense_path(out, runs, dev, cs) -> None:
+    """The one-card dense solve: the streaming preview's, cold and warm,
+    and depth 7 and 8 cold solves, warm-up + ``runs`` timed runs."""
+    import torch
+
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        pointcloud,
+        poisson,
+    )
+
+    def cloud(n):
+        pts = torch.from_numpy(cs.cylinder_cloud(n, 2)).to(dev)
+        nrm = pointcloud.estimate_normals(pts, k=12)[0]
+        return pts, pointcloud.orient_normals(
+            pts, nrm, torch.tensor([0.0, 0.0, 500.0], device=dev),
+            outward=True)
+
+    small, big = cloud(8192), cloud(1 << 16)
+    x0 = poisson.reconstruct(small[0][::2], small[1][::2], depth=6,
+                             cg_iters=60).chi
+    solves = {"preview_cold": (small, 6, 60, None),
+              "preview_warm": (small, 6, 60, x0),
+              "d7": (big, 7, 300, None), "d8": (big, 8, 300, None)}
+    out["runs"]["dense"] = []
+    for run in range(runs + 1):
+        row = {}
+        for name, ((pts, nrm), depth, iters, warm) in solves.items():
+            cs._sync(dev)
+            t0 = time.perf_counter()
+            grid, used = poisson.reconstruct(pts, nrm, depth=depth,
+                                             cg_iters=iters, x0=warm,
+                                             return_iters=True)
+            cs._sync(dev)
+            row[f"{name}_s"] = time.perf_counter() - t0
+            row[f"{name}_iters"] = used
+            if run == 0:
+                out["digest"][f"dense {name} chi"] = _digest(grid.chi)
+        if run:
+            out["runs"]["dense"].append(row)
+            print(f"dense run {run}: {json.dumps(row)}", flush=True)
 
 
 def main() -> int:

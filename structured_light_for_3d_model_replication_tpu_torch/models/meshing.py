@@ -28,9 +28,10 @@ multipliers (`server/processing.py:222-235`) in the native layer the port
 shares with the JAX package (:mod:`.._native`, ``native/src/ball_pivot.cpp``:
 sequential front propagation, a host job); without that library it falls
 back, as the JAX package does, to the Poisson solve with a hard density
-trim. ``device_mesh`` (a :class:`..parallel.mesh.Mesh`) keeps a dense
-solve on the mesh's cards: the serving tier's sharded bucket meshes on a
-card its decode spanned.
+trim. ``device_mesh`` (a :class:`..parallel.mesh.Mesh`) spreads a dense
+solve over the mesh's space members, a slab of grid planes each; the
+serving tier's sharded bucket passes one card of the span its decode
+spanned, since one card solves its depths faster than the span.
 """
 
 from __future__ import annotations
@@ -141,13 +142,14 @@ def mesh_from_cloud(
     (clamped to 5–9), trims the lowest-weight ``quantile_trim`` of the
     triangles, bounds the brick pool by ``tsdf_max_bricks`` (overflow
     degrades to holes, logged) and ignores ``cg_x0``.
-    ``device_mesh`` (a :class:`..parallel.mesh.Mesh`) places the dense
-    solve on one of the mesh's space members: ``device`` when it is one
-    (a serving lane's own card), else the first. The whole cloud is
-    solved there by :func:`..ops.poisson.reconstruct`; splitting its splat
-    over the members saved nothing, since the CG on the grid is the cost.
-    Depth > 8, the ball pivot and the TSDF representation ignore it, as
-    the JAX package does.
+    ``device_mesh`` (a :class:`..parallel.mesh.Mesh`) spreads the dense
+    solve over the mesh's space members (:func:`..ops.poisson.reconstruct`
+    with ``members``): each splats, divides and runs the CG on its own
+    slab of grid planes, and the grid is gathered on :func:`solve_device`
+    (``device`` when the mesh holds it, else the first member) for the
+    extraction. One member is the plain solve on that member: the serving
+    tier's sharded bucket passes one card of its span. Depth > 8, the ball pivot and the TSDF representation
+    ignore it, as the JAX package does.
     ``timing``, when given, receives wall seconds per stage, each measured
     with a device synchronize: ``normals_s``, then ``setup_s``,
     ``coarse_s``, ``fine_cg_s``, ``iso_s`` (sparse) or ``solve_s``
@@ -214,12 +216,14 @@ def mesh_from_cloud(
         mesh = marching.extract_sparse(grid, quantile_trim=trim,
                                        engine=extraction)
     else:
+        members = None
         if device_mesh is not None:
             on = solve_device(device_mesh, dev)
             pts_t, nrm_t = pts_t.to(on), nrm_t.to(on)
-            cg_x0 = None if cg_x0 is None else cg_x0.to(on)
+            members = device_mesh.space_members
         grid = poisson.reconstruct(pts_t, nrm_t, depth=int(depth),
-                                   cg_iters=cg_iters, x0=cg_x0)
+                                   cg_iters=cg_iters, x0=cg_x0,
+                                   members=members)
         t2 = clock()
         if timing is not None:
             timing["solve_s"] = t2 - t1
@@ -233,9 +237,9 @@ def mesh_from_cloud(
 
 
 def solve_device(device_mesh, device: torch.device) -> torch.device:
-    """The member of ``device_mesh``'s space axis a dense solve runs on:
-    ``device`` when the mesh holds it (compared by label: host lanes all
-    report ``cpu``), else the first member."""
+    """The member of ``device_mesh``'s space axis a dense solve gathers its
+    grid on: ``device`` when the mesh holds it (compared by label: host
+    lanes all report ``cpu``), else the first member."""
     from ..parallel.mesh import device_label
 
     members = device_mesh.space_members

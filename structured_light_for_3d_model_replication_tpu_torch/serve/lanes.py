@@ -600,11 +600,10 @@ class DeviceLanePool:
         return [d for d in self.devices if device_label(d) in want]
 
     def solve_mesh(self, key: BucketKey):
-        """The `parallel/mesh.py` device mesh whose cards a sharded
-        bucket's Poisson postprocess solves on
-        (``mesh_from_cloud(device_mesh=…)``) — None for lane-pinned
-        buckets. Memoized: one Mesh per device
-        SET."""
+        """The `parallel/mesh.py` device mesh of a sharded bucket's span,
+        on one card of which (``models/meshing.solve_device``) its Poisson
+        postprocess solves — None for lane-pinned buckets. Memoized: one
+        Mesh per device SET."""
         span = self.span_for(key)
         if not span:
             return None

@@ -497,18 +497,24 @@ class DeviceWorker:
         # them).
         from ..models import meshing
 
-        # A sharded-bucket job solves on a card of the span its decode
+        from ..parallel import mesh as pmesh
+
+        # A sharded-bucket job solves on one card of the span its decode
         # spanned (serve/lanes.py): this lane's card when the span holds
-        # it, else the span's first.
-        device_mesh = (self.lane_pool.solve_mesh(key)
-                       if self.lane_pool is not None else None)
+        # it, else the span's first. Spread over the span's cards, a slab
+        # of grid planes each, the dense solve took 2.6-5.5x one card's
+        # time at depths 6 and 7 over 2 and 4 H100s (PERF.md, Findings).
+        device = (self.lane.device if self.lane is not None
+                  else self.cache.device)
+        span = (self.lane_pool.solve_mesh(key)
+                if self.lane_pool is not None else None)
         mesh = meshing.mesh_from_cloud(
             cloud, mode="watertight", depth=self.mesh_depth,
             quantile_trim=0.0,
             representation=self.mesh_representation,
-            device_mesh=device_mesh,
-            device=(self.lane.device if self.lane is not None
-                    else self.cache.device))
+            device_mesh=None if span is None else pmesh.serve_space_mesh(
+                1, devices=[meshing.solve_device(span, device)]),
+            device=device)
         meta.update(vertices=int(len(mesh.vertices)),
                     faces=int(len(mesh.faces)),
                     representation=self.mesh_representation)

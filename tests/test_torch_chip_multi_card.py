@@ -32,10 +32,13 @@ def test_chip_smoke_multi_card_phase_on_host_lanes(monkeypatch):
     """``chip_smoke.py``'s phase 8h on host devices, the branch one card
     cannot run included: (a) the members' steps at widths 2, 4, 8 on one
     device bit-equal to the unsharded batch, (b) the ``device_mesh`` dense
-    solve bit-equal to the plain one (at depth 5 here; the card's is depth
-    8), (c) the one-device services byte-equal to the plain one, then
-    bench configs 7b, 7c and 7c2 over four host lanes on the tiny rig
-    (the card runs them at the bench's shapes). The nccl world of one (d)
+    solve with one member bit-equal to the plain one and with 2 and 4
+    members (stepped in turn on one device) within the phase's slab bounds
+    (at depth 5 here; the card's is depth 8), (c) the one-device services
+    byte-equal to the plain one, then bench configs 7b, 7c and 7c2 and,
+    over 2 and 4 of four host lanes, the slab rows bit for bit and the
+    slab solve of the sphere and of 7c2's STL cloud on the tiny rig (the
+    card runs them at the bench's shapes). The nccl world of one (d)
     needs a card."""
     import importlib.util
     from pathlib import Path
@@ -61,12 +64,21 @@ def test_chip_smoke_multi_card_phase_on_host_lanes(monkeypatch):
         {"members 2", "members 4", "members 8"}
     monkeypatch.setattr(cs, "MC_DEPTH", 5)
     solve = cs.mc_dense_solve(host, PointCloud(points=_sphere_cloud()))
-    assert solve["device_mesh"]["faces"] == solve["plain"]["faces"] > 500
+    assert solve["plain_faces"] > 500 and solve["repeat_bit_equal"]
+    assert [solve[f"{k} members"]["halo_bytes"] for k in (2, 4)] == \
+        [2 * 32 * 32 * 4, 6 * 32 * 32 * 4]
     assert set(cs.mc_one_card_services(host, stacks, calib, proj)) == \
         {"plain", "devices=1", "shard_min_pixels"}
     runs = cs.multi_card_runs(list(HOST[:4]))
-    assert runs["ran"] == ["7b", "7c", "7c2"] and runs["not_run"] == []
+    assert runs["ran"] == ["7b", "7c", "7c2", "slab solve"]
+    assert runs["not_run"] == []
     assert sorted(runs["runs"]["7b"]) == [1, 2, 4]
     assert runs["runs"]["7c2"]["convicted"] == "cpu:0"
+    slab = runs["runs"]["slab solve"]
+    assert sorted(slab) == ["7c2's STL cloud depth 5", "rows",
+                            "the 4001-point sphere depth 5"]
+    assert all(sorted(v) == [2, 4] for v in slab.values())
     one = cs.multi_card_runs([HOST[0]])
-    assert one["not_run"] == ["7b above 1 lane", "7c", "7c2"]
+    assert one["not_run"] == ["7b above 1 lane", "7c", "7c2",
+                              "slab solve over 2 cards",
+                              "slab solve over 4 cards"]

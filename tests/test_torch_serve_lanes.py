@@ -295,6 +295,38 @@ def test_sharded_bucket_stl_solves_over_the_device_mesh(service,
     assert job.result_meta["faces"] > 0, job.result_meta
 
 
+def test_sharded_bucket_stl_solves_on_one_card_of_the_span(
+        service, big_stack, monkeypatch):
+    """A sharded-bucket STL job's dense solve runs whole on one card of
+    its span, not spread over the span's cards (slower at the serve
+    tier's depths, PERF.md): the worker passes a one-member
+    ``device_mesh``, this lane's card when the span holds it, else the
+    span's first, and the job's mesh is the one-device mesh of its cloud
+    face for face."""
+    from structured_light_for_3d_model_replication_tpu_torch.models import (
+        meshing,
+    )
+    from structured_light_for_3d_model_replication_tpu_torch.parallel.mesh \
+        import device_label
+
+    real, calls = meshing.mesh_from_cloud, []
+
+    def recorded(cloud, **kw):
+        calls.append((cloud, kw))
+        return real(cloud, **kw)
+
+    monkeypatch.setattr(meshing, "mesh_from_cloud", recorded)
+    job = service.submit_array(big_stack + np.uint8(2), result_format="stl")
+    assert job.wait(180.0) and job.status == "done", job.status_dict()
+    (cloud, kw), = calls
+    span = service.lanes.span_devices()
+    (member,) = kw["device_mesh"].space_members
+    lane = device_label(kw["device"])
+    assert device_label(member) == (lane if lane in span else span[0])
+    plain = real(cloud, **dict(kw, device_mesh=None, device=member))
+    assert job.result_meta["faces"] == len(plain.faces) > 0
+
+
 def _sphere_cloud(n=4001):
     rng = np.random.default_rng(0)
     v = rng.normal(size=(n, 3))
@@ -302,11 +334,10 @@ def _sphere_cloud(n=4001):
     return (v * 50.0 + np.asarray([0.0, 0.0, 500.0])).astype(np.float32)
 
 
-@pytest.mark.slow
 def test_sharded_solve_pads_non_divisible_clouds():
     """As tests/test_serve_lanes.py: 4001 points with a two-member
     ``device_mesh`` (the JAX package pads them with a ``valid=False`` row
-    to split them; the port solves the whole cloud on one member), the
+    to split them; the port cuts the grid's planes over the members), the
     faces within 2% of the JAX package's sharded solve on its host
     mesh."""
     from structured_light_for_3d_model_replication_tpu.io.ply import (
@@ -340,27 +371,44 @@ def test_sharded_solve_pads_non_divisible_clouds():
     assert abs(len(mesh.faces) - len(ref.faces)) <= 0.02 * len(ref.faces)
 
 
-def test_padded_sharded_solve_depth5_matches_unsharded():
+def test_padded_sharded_solve_depth5_matches_unsharded(monkeypatch):
     """The tier-1 case of the padded sharded solve: 4001 points, no member
     multiple, with a ``device_mesh`` of one, two and three host members at
-    depth 5. The port solves the whole cloud on one member, so every mesh
-    equals the unsharded one bit for bit; the member is the caller's
-    device when the mesh holds it, else the first."""
+    depth 5. One member is the plain solve on it, so its mesh equals the
+    unsharded one bit for bit. Two and three members spread the solve
+    over their slabs of planes, whose sums fold in member order: CG
+    iterations within 1, χ and iso within 1e-5·max|χ| of the unsharded
+    grid, faces within 0.5% (tests/test_torch_poisson_slabs.py's bounds).
+    The grid is gathered on the caller's device when the mesh holds it,
+    else on the first member."""
     from structured_light_for_3d_model_replication_tpu_torch.io.ply import (
         PointCloud,
     )
     from structured_light_for_3d_model_replication_tpu_torch.models import (
         meshing,
     )
+    from structured_light_for_3d_model_replication_tpu_torch.ops import (
+        poisson,
+    )
     from structured_light_for_3d_model_replication_tpu_torch.parallel import (
         mesh as pmesh,
     )
 
+    real, solves = poisson.reconstruct, []
+
+    def recorded(*args, **kw):
+        grid, iters = real(*args, **dict(kw, return_iters=True))
+        solves.append((grid, iters))
+        return grid
+
+    monkeypatch.setattr(meshing.poisson, "reconstruct", recorded)
     pts = _sphere_cloud()
     cloud = PointCloud(points=pts, colors=np.full((len(pts), 3), 128,
                                                   np.uint8))
     ref = meshing.mesh_from_cloud(cloud, depth=5, quantile_trim=0.0,
                                   device="cpu")
+    ref_grid, ref_iters = solves.pop()
+    scale = float(ref_grid.chi.abs().max())
     assert len(ref.faces) > 500
     for k in (1, 2, 3):
         m = pmesh.serve_space_mesh(k, devices=HOST[1:])
@@ -368,8 +416,15 @@ def test_padded_sharded_solve_depth5_matches_unsharded():
         assert meshing.solve_device(m, HOST[0]) == HOST[1]
         mesh = meshing.mesh_from_cloud(cloud, depth=5, quantile_trim=0.0,
                                        device="cpu", device_mesh=m)
-        assert np.array_equal(mesh.vertices, ref.vertices)
-        assert np.array_equal(mesh.faces, ref.faces)
+        grid, iters = solves.pop()
+        if k == 1:
+            assert np.array_equal(mesh.vertices, ref.vertices)
+            assert np.array_equal(mesh.faces, ref.faces)
+            continue
+        assert abs(iters - ref_iters) <= 1
+        assert float((grid.chi - ref_grid.chi).abs().max()) <= 1e-5 * scale
+        assert abs(float(grid.iso) - float(ref_grid.iso)) <= 1e-5 * scale
+        assert abs(len(mesh.faces) - len(ref.faces)) <= 0.005 * len(ref.faces)
 
 
 # ---------------------------------------------------------------------------
